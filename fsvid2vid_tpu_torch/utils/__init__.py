@@ -1,0 +1,1 @@
+"""Utilities of the port: weights carried across from the JAX package."""
