@@ -3,17 +3,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, then drives the port's
-serving path end to end: K-shot face synthesis at 512 px with K = 8
-references and the full width of face_config (the path that runs the kernel
-once per frame), and the K = 1 face-256 forward.  Each phase prints one
-JSON line; the kernels line comes before the last line, and the last line is
+Builds the port's CUDA kernels (multi-reference flash attention, FlowNetC
+cost volume) from the sources in this checkout, both at once, and holds each
+against its plain PyTorch version on the card.  Then it drives the port's
+two main paths end to end at the full width of face_config:
+
+  * serving: K-shot face synthesis at 512 px with K = 8 references (the
+    attention kernel once per frame), and the K = 1 face-256 forward;
+  * training: face 256 px at batch 4 with seeded random G, D, VGG19 and
+    FlowNet2; the flow teacher (the cost-volume kernel once per flow call),
+    then single-frame and temporal steps of `train_step` and
+    `train_step_faithful` in bf16, two steps in f32, and a small model's
+    step on the card against the CPU.
+
+Each phase prints one JSON line; the kernels line comes before the last
+line, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-The slice phase's line also holds a torch.profiler breakdown of one warm
-K = 8 frame per dtype.  Any failure raises and exits non-zero.  Without a CUDA device, or without
+The serving slice's line also holds a torch.profiler breakdown of one warm
+K = 8 frame per dtype, the training slice's one of a temporal bf16 step and
+of a teacher call.  Any failure raises and exits non-zero.  Without a CUDA device, or without
 the fsvid2vid_tpu_torch package next to this file, it exits non-zero before
 printing any result.  It imports nothing of JAX or of fsvid2vid_tpu.
 """
@@ -73,13 +83,19 @@ def phase_device(torch):
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
     from fsvid2vid_tpu_torch.ops import attention_kernel as ak
-    seconds, log = ak.build(verbose=True)
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "kernel": "flash_ref_attention",
-          "source": str(ak.SOURCE.relative_to(REPO)), "seconds": seconds,
-          "ptxas": ptxas})
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    t0 = time.perf_counter()
+    pending = [(lib, lib.start_build(verbose=True)) for lib in (ak.KERNEL, cv.KERNEL)]
+    for lib, finish in pending:
+        seconds, log = finish()
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        emit({"phase": "build", "kernel": lib.name,
+              "source": str(lib.source.relative_to(REPO)), "seconds": seconds,
+              "ptxas": ptxas[:8], "ptxas_lines": len(ptxas)})
+    emit({"phase": "build", "all_seconds": time.perf_counter() - t0})
 
 
 def cuda_ms(torch, fn, reps):
@@ -189,6 +205,65 @@ def phase_kernels(torch):
 
 
 # ----------------------------------------------------------------------
+# the cost-volume kernel
+# ----------------------------------------------------------------------
+# (B, C, H, W, max_displacement, stride): the teacher's call on a 3-frame
+# sequence of batch 4 at 256 px; the same net at 512 px; a ragged shape
+CV_SHAPES = {"slice": (12, 256, 32, 32, 20, 2), "px512": (4, 256, 64, 64, 20, 2),
+             "ragged": (2, 40, 13, 19, 4, 2)}
+# kernel vs plain version, max abs error.  Both sum <= 256 f32 products of
+# N(0, 1) inputs and divide by C, so |out| < 1:
+#  f32: the same products summed in another order: 2e-6;
+#  bf16: both round an f32 result below 1 to bf16 (ulp 2^-8 below 1, and the
+#    two f32 sums may fall on either side of a rounding boundary): 4e-3.
+CV_TOL = {"float32": 2e-6, "bfloat16": 4e-3}
+
+
+def check_cost_volume(torch, dtype_name, case):
+    from fsvid2vid_tpu_torch.ops.cost_volume import (
+        correlation, cost_volume_cuda, cost_volume_plain)
+    b, c, h, w, md, stride = CV_SHAPES[case]
+    dtype = getattr(torch, dtype_name)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    f1 = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype)
+    f2 = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype)
+    out = correlation(f1, f2, md, stride)
+    torch.cuda.synchronize()
+    ref = cost_volume_plain(f1, f2, md, stride)
+    d = 2 * (md // stride) + 1
+    if out.shape != (b, d * d, h, w) or out.dtype != dtype:
+        raise AssertionError(f"cost volume output {tuple(out.shape)} {out.dtype}")
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"cost volume not finite ({case}, {dtype_name})")
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = CV_TOL[dtype_name]
+    flops = 2.0 * b * h * w * d * d * c
+    nbytes = (2.0 * b * c * h * w + d * d * b * h * w) * f1.element_size()
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    res = {"phase": "kernel_check", "kernel": "cost_volume", "case": case,
+           "dtype": dtype_name, "shape": CV_SHAPES[case], "max_abs_err": err,
+           "tol": tol, "ok": err <= tol, "out_abs_max": ref.float().abs().max().item(),
+           "ms": cuda_ms(torch, lambda: cost_volume_cuda(f1, f2, md, stride), 20),
+           "plain_ms": cuda_ms(torch, lambda: cost_volume_plain(f1, f2, md, stride), 3),
+           "flop": flops, "bytes": nbytes,
+           "bound_ms": 1e3 * max(flops / peak, nbytes / H100_BYTES_PER_S),
+           "bound_by": ("operations" if flops / peak >= nbytes / H100_BYTES_PER_S
+                        else "bytes"),
+           "library_ms": None}   # no single PyTorch call computes this function
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"cost_volume {case} {dtype_name}: error {err} above {tol}")
+    return res
+
+
+def phase_cost_volume(torch):
+    res = {(case, d): check_cost_volume(torch, d, case)
+           for case in CV_SHAPES for d in ("float32", "bfloat16")}
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
 # the serving path
 # ----------------------------------------------------------------------
 def seeded_inputs(torch, cfg, k, t, seed):
@@ -250,20 +325,26 @@ def run_frames(torch, pipe, labels, ref_labels, ref_images):
 
 
 def profile_step(torch, pipe, label):
-    """Device time of one warm pipeline step by kernel (torch.profiler's
+    return profile_call(torch, lambda: pipe.step(label))
+
+
+def profile_call(torch, fn):
+    """Device time of one warm call of `fn` by kernel (torch.profiler's
     CUDA kernel records; CUPTI's own buffer records left out): the 10
-    largest, their sum, and the step's host-clock ms."""
+    largest, their sum, and the call's host-clock ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cupti_records = {"Activity Buffer Request", "Buffer Flush", "Command Buffer Full"}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.step(label)
+        fn()
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0)
     by_kernel = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.name not in cupti_records:
+        # device-side annotations (the optimizer's step range) are not kernels
+        if (e.device_type == DeviceType.CUDA and e.name not in cupti_records
+                and not e.name.startswith("Optimizer.")):
             ms, n = by_kernel.get(e.name, (0.0, 0))
             by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
@@ -371,6 +452,183 @@ def phase_k1(torch):
     emit(res)
 
 
+# ----------------------------------------------------------------------
+# the training path
+# ----------------------------------------------------------------------
+TRAIN_BATCH = 4
+TEMPORAL_FRAMES = 3
+# small model, one f32 step: the card (B2 kernel in the teacher) vs the CPU
+SMALL_STEP_RTOL = 1e-3
+
+
+def train_data(torch, cfg, b, t, seed, device="cuda"):
+    """A seeded batch of sequences: labels and images (B, T, H, W, C), one
+    reference (B, 1, H, W, C); frame t is frame 0 shifted by t pixels plus
+    noise, so consecutive frames are related."""
+    g = torch.Generator().manual_seed(seed)
+    h, w, cl = cfg.height, cfg.width, cfg.gen_input_nc
+    import torch.nn.functional as F
+    smooth = lambda c: F.interpolate(torch.randn(b, c, h // 8, (w + 8 * t) // 8, generator=g),
+                                     scale_factor=8, mode="bilinear")
+    base_l, base_i = smooth(cl), smooth(3)
+    frames = lambda base, c: torch.stack(
+        [base[..., i:i + w] + 0.05 * torch.randn(b, c, h, w, generator=g)
+         for i in range(t)], 1).movedim(2, -1)
+    seq = dict(tgt_label=frames(base_l, cl), tgt_image=torch.tanh(frames(base_i, 3)),
+               ref_labels=smooth(cl)[..., :w].movedim(1, -1)[:, None],
+               ref_images=torch.tanh(smooth(3)[..., :w]).movedim(1, -1)[:, None])
+    return {k: v.contiguous().to(device) for k, v in seq.items()}
+
+
+def run_train_sequence(torch, cfg, state, teacher, step_fn, seq, epoch, dtype,
+                       log, profile=False):
+    """What the trainer does with one batch of sequences: one teacher call,
+    then one step per frame.  Returns the number of flow computations."""
+    from fsvid2vid_tpu_torch.training.step import StepFlags, init_prevs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow_gt, conf_gt = teacher(cfg, seq, epoch)
+    torch.cuda.synchronize()
+    teacher_ms = 1e3 * (time.perf_counter() - t0)
+    flow_calls = sum(f is not None for f in flow_gt)
+    for f, c in zip(flow_gt, conf_gt):
+        if f is not None and not (torch.isfinite(f).all() and torch.isfinite(c).all()):
+            raise AssertionError("teacher output not finite")
+    temporal = epoch > cfg.niter_single
+    n_frames = seq["tgt_label"].shape[1]
+    entry = {"step": step_fn.__name__, "dtype": dtype, "temporal": temporal,
+             "frames": n_frames, "teacher_ms": teacher_ms, "flow_calls": flow_calls,
+             "conf_mean": [None if c is None else c.mean().item() for c in conf_gt],
+             "step_ms": [], "losses": []}
+    prevs = None
+    for t in range(n_frames):
+        at = lambda xs: [None if x is None else x[:, t] for x in xs]
+        batch = dict(tgt_label=seq["tgt_label"][:, t], tgt_image=seq["tgt_image"][:, t],
+                     ref_labels=seq["ref_labels"], ref_images=seq["ref_images"],
+                     flow_gt=at(flow_gt), conf_gt=at(conf_gt))
+        if prevs is None:
+            prevs = init_prevs(cfg, batch)
+        flags = StepFlags(warp_prev=temporal, has_prev=t > 0)
+        run = lambda: step_fn(cfg, state, batch, prevs, flags, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile and t == n_frames - 1:
+            box = {}
+            entry["profile_step"] = profile_call(torch, lambda: box.update(out=run()))
+            prevs, losses, _ = box["out"]
+        else:
+            prevs, losses, _ = run()
+        torch.cuda.synchronize()
+        entry["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        losses = {k: v.item() for k, v in losses.items()}
+        bad = [k for k, v in losses.items() if v != v or abs(v) == float("inf")]
+        if bad:
+            raise AssertionError(f"non-finite losses {bad} ({entry['step']}, {dtype})")
+        entry["losses"].append(losses)
+    if profile:
+        entry["profile_teacher"] = profile_call(torch, lambda: teacher(cfg, seq, epoch))
+        flow_calls += sum(f is not None for f in flow_gt)
+    entry["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log.append(entry)
+    return flow_calls
+
+
+def phase_train(torch):
+    """Face 256 px, batch 4, full width: the teacher and both train steps."""
+    from fsvid2vid_tpu_torch.config import face_config
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
+    from fsvid2vid_tpu_torch.training.state import TrainState, build_models
+    from fsvid2vid_tpu_torch.training.step import train_step, train_step_faithful
+    cfg = face_config(batch_size=TRAIN_BATCH)
+    gen = torch.Generator().manual_seed(11)
+    t0 = time.perf_counter()
+    models = build_models(cfg, generator=gen)
+    teacher = FlowTeacher(cfg, generator=gen)
+    state = TrainState(cfg, models)
+    torch.cuda.synchronize()
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    res = {"phase": "train_face_256", "size": cfg.fine_size, "batch": TRAIN_BATCH,
+           "ngf": cfg.ngf, "n_downsample_G": cfg.n_downsample_G,
+           "n_adaptive_layers": cfg.n_adaptive_layers, "ndf": cfg.ndf,
+           "num_D": cfg.num_D, "n_layers_D": cfg.n_layers_D, "n_frames_G": cfg.n_frames_G,
+           "params": {"G": count(models.netG), "D": count(models.netD),
+                      "DT": count(models.netDT), "vgg": count(models.vgg),
+                      "flownet2": count(teacher.model)},
+           "build_seconds": time.perf_counter() - t0}
+    single = [train_data(torch, cfg, TRAIN_BATCH, 1, seed) for seed in (21, 22)]
+    temporal = train_data(torch, cfg, TRAIN_BATCH, TEMPORAL_FRAMES, 23)
+    before = {n: [p.detach().clone() for p in m.parameters()]
+              for n, m in (("G", models.netG), ("D", models.netD))}
+    torch.cuda.reset_peak_memory_stats()
+    cv.cost_volume_cuda.launches = 0
+    log, flow_calls = [], 0
+    e_single, e_temporal = 1, cfg.niter_single + 1
+    for step_fn in (train_step, train_step_faithful):
+        for seq in single:
+            flow_calls += run_train_sequence(torch, cfg, state, teacher, step_fn, seq,
+                                             e_single, "bfloat16", log)
+        flow_calls += run_train_sequence(torch, cfg, state, teacher, step_fn, temporal,
+                                         e_temporal, "bfloat16", log,
+                                         profile=step_fn is train_step)
+    for seq in single:
+        flow_calls += run_train_sequence(torch, cfg, state, teacher, train_step, seq,
+                                         e_single, "float32", log)
+    launches = cv.cost_volume_cuda.launches
+    res.update(sequences=log, steps=state.step, flow_calls=flow_calls,
+               cost_volume_launches=launches)
+    moved = {}
+    for n, m in (("G", models.netG), ("D", models.netD)):
+        params = list(m.parameters())
+        if not all(torch.isfinite(p).all() for p in params):
+            raise AssertionError(f"non-finite parameters in {n}")
+        moved[n] = sum(int(not torch.equal(p, q)) for p, q in zip(params, before[n]))
+        moved[n + "_of"] = len(params)
+    res["tensors_moved"] = moved
+    emit(res)
+    if launches != flow_calls or launches == 0:
+        raise AssertionError(f"cost volume launches {launches} != flow calls {flow_calls}")
+    if moved["G"] < 0.9 * moved["G_of"] or moved["D"] < 0.9 * moved["D_of"]:
+        raise AssertionError(f"parameters did not move: {moved}")
+    del models, teacher, state, before
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_small_train(torch):
+    """A small model's first f32 train step, teacher included, on the card
+    (B2 kernel) against the CPU (plain version), from the same seed."""
+    from fsvid2vid_tpu_torch.config import face_config
+    from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
+    from fsvid2vid_tpu_torch.training.state import TrainState, build_models
+    from fsvid2vid_tpu_torch.training.step import StepFlags, init_prevs, train_step
+    cfg = face_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
+                      n_downsample_G=3, n_adaptive_layers=2, batch_size=2, niter_single=0)
+    losses, conf = {}, {}
+    for device in ("cuda", "cpu"):
+        gen = torch.Generator().manual_seed(31)
+        state = TrainState(cfg, build_models(cfg, device=device, generator=gen))
+        teacher = FlowTeacher(cfg, device=device, generator=gen)
+        seq = train_data(torch, cfg, 2, 2, 32, device=device)
+        flow_gt, conf_gt = teacher(cfg, seq, epoch=1)
+        conf[device] = [c.mean().item() for c in conf_gt]
+        at = lambda xs: [x[:, 1] for x in xs]
+        batch = dict(tgt_label=seq["tgt_label"][:, 1], tgt_image=seq["tgt_image"][:, 1],
+                     ref_labels=seq["ref_labels"], ref_images=seq["ref_images"],
+                     flow_gt=at(flow_gt), conf_gt=at(conf_gt))
+        prevs = dict(label=seq["tgt_label"][:, 0], real=seq["tgt_image"][:, 0],
+                     fake=seq["tgt_image"][:, 0])
+        _, out, _ = train_step(cfg, state, batch, prevs, StepFlags(True, True))
+        losses[device] = {k: v.item() for k, v in out.items()}
+    rel = {k: abs(v - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
+           for k, v in losses["cuda"].items()}
+    emit({"phase": "small_train_card_vs_cpu", "losses_cuda": losses["cuda"],
+          "losses_cpu": losses["cpu"], "conf_mean": conf, "max_rel_err": max(rel.values()),
+          "tol": SMALL_STEP_RTOL})
+    if not max(rel.values()) <= SMALL_STEP_RTOL:
+        raise AssertionError(f"small train step, card vs CPU: {rel}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -384,10 +642,15 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     kern = phase_kernels(torch)
+    cv_res = phase_cost_volume(torch)
     slice_res = phase_slice(torch)
     phase_small(torch)
     phase_k1(torch)
+    train_res = phase_train(torch)
+    phase_small_train(torch)
     bf, f32 = kern["bfloat16"], kern["float32"]
+    cv_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    cv_main = cv_res["slice", "float32"]   # the teacher runs in f32
     emit({"kernels": [{
         "name": "flash_ref_attention", "route": "cuda",
         "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention.cu",
@@ -398,7 +661,15 @@ def main() -> int:
         "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
         "dtype": "bfloat16", "shape": SLICE, "card": smi,
         "f32": {k: f32[k] for k in ("max_abs_err_out", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}}]})
+                                    "bound_ms", "bound_by", "library_ms")}}, {
+        "name": "cost_volume", "route": "cuda",
+        "source": "fsvid2vid_tpu_torch/csrc/cost_volume.cu",
+        "replaces": "fsvid2vid_tpu/ops/pallas/cost_volume_kernel.py:71",
+        "launches": train_res["cost_volume_launches"],
+        **{k: cv_main[k] for k in cv_keys},
+        "dtype": "float32", "shape": CV_SHAPES["slice"], "card": smi,
+        "other": {f"{case}_{d}": {k: r[k] for k in cv_keys}
+                  for (case, d), r in cv_res.items() if (case, d) != ("slice", "float32")}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

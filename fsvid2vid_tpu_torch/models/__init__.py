@@ -1,5 +1,7 @@
-"""Networks of the port.  `build_generator` is the counterpart of the G half
-of fsvid2vid_tpu/training/state.py::build_models."""
+"""Networks of the port and their seeded initialisation.  `build_generator`
+is the counterpart of the G half of
+fsvid2vid_tpu/training/state.py::build_models; training/state.py builds the
+rest."""
 from __future__ import annotations
 
 import math
@@ -62,6 +64,36 @@ def init_weights(model: nn.Module, generator: torch.Generator,
     return model
 
 
+@torch.no_grad()
+def init_plain_convs(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded init of a network of plain convs (VGG19, FlowNet2) that stands
+    in for pretrained weights, with flax's defaults as the JAX package uses
+    them: conv weights ~ N(0, 1 / fan_in), transposed-conv weights xavier
+    uniform, zero biases.  Draws on the CPU from `generator`."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.in_channels * math.prod(m.kernel_size)
+            w = torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
+        elif isinstance(m, nn.ConvTranspose2d):
+            rf = math.prod(m.kernel_size)
+            limit = math.sqrt(6.0 / (rf * (m.in_channels + m.out_channels)))
+            w = (torch.rand(m.weight.shape, generator=generator) * 2 - 1) * limit
+        else:
+            continue
+        m.weight.copy_(w)
+        if m.bias is not None:
+            m.bias.zero_()
+    return model
+
+
+def build_on_device(make, device) -> nn.Module:
+    """`make()` built without storage, then given uninitialised storage on
+    `device`: the caller initialises every parameter and buffer."""
+    with torch.device("meta"):
+        net = make()
+    return net.to_empty(device=device)
+
+
 def build_generator(cfg: Config, device=None,
                     generator: Optional[torch.Generator] = None) -> FewShotGenerator:
     """The generator of `cfg` in eval mode on `device` (CUDA unless the
@@ -70,7 +102,5 @@ def build_generator(cfg: Config, device=None,
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
-    with torch.device("meta"):
-        net = FewShotGenerator(cfg)
-    net.to_empty(device=device)
+    net = build_on_device(lambda: FewShotGenerator(cfg), device)
     return init_weights(net, generator, cfg.init_variance).eval()

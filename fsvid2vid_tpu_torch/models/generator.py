@@ -1,4 +1,4 @@
-"""Few-shot adaptive-SPADE generator at eval (port of
+"""Few-shot adaptive-SPADE generator (port of
 fsvid2vid_tpu/models/generator.py, reference models/networks/generator.py),
 NCHW inside.
 
@@ -9,8 +9,15 @@ serving caches (`encode_reference` for K = 1, `encode_reference_multi` for
 K > 1).  At eval with K > 1 the attention runs the hand-written CUDA kernel
 (ops/attention_kernel.py) on the card.
 
-Not ported (not on the serving path): training, the VAE branch (use_kld),
-adaptive_conv, and the face-refinement forward.  They raise.
+`forward` follows `module.training`.  In train mode (K = 1 only) batch norms
+use batch statistics and every spectral-norm layer advances its u / v once
+per call, so a module that is called twice in one forward (the shared flow
+network, the up blocks that also produce the raw output) advances twice,
+as in the reference.
+
+Not ported: K > 1 in train mode (the attention kernel is forward only), the
+VAE branch (use_kld), adaptive_conv, and the face-refinement forward.  They
+raise.
 """
 from __future__ import annotations
 
@@ -146,7 +153,8 @@ class FewShotGenerator(nn.Module):
     def _check_eval(self):
         if self.training:
             raise NotImplementedError(
-                "training is not ported; call .eval() on the generator")
+                "the serving caches are built at eval; call .eval() on the "
+                "generator")
 
     # ------------------------------------------------------------------
     # attention (reference generator.py:291-316)
@@ -310,8 +318,10 @@ class FewShotGenerator(nn.Module):
         img_ref = pick_ref(img_refs, ref_idx)
         flow, flow_mask, img_warp, ds_ref = ([None, None] for _ in range(4))
         do_prev = warp_prev and prev_label is not None
-        if self.warp_ref and do_prev and cfg.flow_temp_is_shared:
-            # one network on same-shaped inputs: run ref and prev as one 2B batch
+        if (self.warp_ref and do_prev and cfg.flow_temp_is_shared
+                and not self.training):
+            # one network on same-shaped inputs: run ref and prev as one 2B
+            # batch (at eval only: batch statistics would mix the two)
             b = label.shape[0]
             flow2, mask2 = self.flow_network_ref(
                 torch.cat([label, label]), torch.cat([label_ref, prev_label]),
@@ -402,14 +412,18 @@ class FewShotGenerator(nn.Module):
     # ------------------------------------------------------------------
     def forward(self, label, label_refs, img_refs, prev_label=None,
                 prev_img=None, warp_prev: bool = False, prefix=None):
-        """Full eval forward (reference generator.py:181-229).
+        """Full forward (reference generator.py:181-229), at eval or, for
+        K = 1, in train mode.
 
         label: (B, Cl, H, W); label_refs / img_refs: (B, K, C, H, W);
         prev_label / prev_img: previous frames stacked on channels, or None;
         prefix: the encode_reference_multi cache (K > 1).  Returns a dict with
         img_final, flow, flow_mask, img_raw, img_warp, atn_vis, ref_idx."""
-        self._check_eval()
         cfg = self.cfg
+        if self.training and cfg.n_shot > 1:
+            raise NotImplementedError(
+                "train mode with n_shot > 1 is not ported: the attention "
+                "kernel has no backward")
         x, gen = self.weight_generation(img_refs, label_refs, label, prefix=prefix)
         img_final, img_raw, flow, flow_mask, img_warp = self._synthesize_from(
             x, gen, label, label_refs, img_refs, prev_label, prev_img, warp_prev)

@@ -1,4 +1,4 @@
-"""Core layers at eval (port of fsvid2vid_tpu/models/layers.py), NCHW.
+"""Core layers (port of fsvid2vid_tpu/models/layers.py), NCHW.
 
 Parameter and buffer names are the reference's torch names, so the modules
 load the reference's state dicts directly:
@@ -9,9 +9,12 @@ load the reference's state dicts directly:
                                num_batches_tracked
 
 Only the plain layout is ported: the JAX package's space-to-depth branches
-(ops/spd.py) are TPU lane packing with identical math.  Training is not
-ported: the norms use their running statistics and spectral norm uses the
-stored u / v (torch's eval semantics).
+(ops/spd.py) are TPU lane packing with identical math.
+
+Train and eval follow `module.training`, as in torch.  At eval the norms use
+their running statistics and spectral norm the stored u / v.  In train mode
+batch norm uses the batch's statistics and moves the running ones, and every
+forward of a spectral-norm layer advances its u / v (ops/spectral_norm.py).
 """
 from __future__ import annotations
 
@@ -23,18 +26,22 @@ import torch.nn.functional as F
 
 from fsvid2vid_tpu_torch.ops.batch_conv import batch_conv
 from fsvid2vid_tpu_torch.ops.image_ops import avg_pool, leaky_relu, resize_nearest
-from fsvid2vid_tpu_torch.ops.spectral_norm import sigma
+from fsvid2vid_tpu_torch.ops.spectral_norm import spectral_normalize
 
 
 class _SpectralNormed(nn.Module):
     """Holds `weight_orig` / `weight_u` / `weight_v` (use_sn) or `weight`.
 
     `folded` is set by inference.fold.fold_spectral_norm once weight_orig has
-    been divided by its sigma; the forward then skips the sigma matvec."""
+    been divided by its sigma; the eval forward then skips the sigma matvec,
+    and a train-mode forward raises: folded weights are not the stored ones
+    and must never be trained.  `power_iters` is the number of power
+    iterations per train-mode forward (cfg.sn_power_iters)."""
 
     def _init_weight(self, shape, use_sn: bool):
         self.use_sn = use_sn
         self.folded = False
+        self.power_iters = 1
         if use_sn:
             self.weight_orig = nn.Parameter(torch.empty(shape))
             self.register_buffer("weight_u", torch.empty(shape[0]))
@@ -49,9 +56,15 @@ class _SpectralNormed(nn.Module):
         if not self.use_sn:
             return self.weight
         if self.folded:
+            if self.training:
+                raise RuntimeError(
+                    "train-mode forward of a layer whose spectral norm was "
+                    "folded into its weight: folded weights serve inference "
+                    "only; reload the unfolded state to train")
             return self.weight_orig
-        return self.weight_orig / sigma(self.weight_orig, self.weight_u,
-                                        self.weight_v).to(self.weight_orig.dtype)
+        s = spectral_normalize(self.weight_orig, self.weight_u, self.weight_v,
+                               update=self.training, iters=self.power_iters)
+        return self.weight_orig / s.to(self.weight_orig.dtype)
 
 
 class SNConv(_SpectralNormed):
@@ -84,10 +97,14 @@ class SNLinear(_SpectralNormed):
 
 
 class SyncBatchNorm(nn.Module):
-    """Batch norm at eval: (x - running_mean) * rsqrt(running_var + eps),
-    then the affine map, in f32 and cast back to the input dtype."""
+    """Batch norm in f32, cast back to the input dtype.  At eval:
+    (x - running_mean) * rsqrt(running_var + eps), then the affine map.  In
+    train mode the statistics are the batch's over (B, H, W) (biased
+    variance), and the running ones move with momentum 0.1 towards the batch
+    mean and the unbiased variance."""
 
     eps = 1e-5
+    momentum = 0.1
 
     def __init__(self, features: int, affine: bool = True):
         super().__init__()
@@ -102,10 +119,20 @@ class SyncBatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.long))
 
     def forward(self, x):
-        scale = torch.rsqrt(self.running_var.float() + self.eps)
+        if self.training:
+            x32 = x.float()
+            var, mean = torch.var_mean(x32, (0, 2, 3), unbiased=False)
+            with torch.no_grad():
+                n = x.shape[0] * x.shape[2] * x.shape[3]
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var * (n / max(n - 1, 1)), self.momentum)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        scale = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             scale = scale * self.weight.float()
-        shift = -self.running_mean.float() * scale
+        shift = -mean * scale
         if self.bias is not None:
             shift = shift + self.bias.float()
         y = torch.addcmul(shift[:, None, None], x.float(), scale[:, None, None])

@@ -9,84 +9,33 @@ With N = n_refs * hw_key keys:
   vis[b,q,r]   = the softmax mass on the keys of reference r
 
 The kernel (csrc/flash_ref_attention.cu) is built with nvcc for sm_90a on
-first use into fsvid2vid_tpu_torch/build/ and loaded with ctypes.  The
-wrapper runs the plain version only for CPU tensors; for CUDA tensors it
+first use into fsvid2vid_tpu_torch/build/ and loaded with ctypes
+(ops/cuda_build.py).  The wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "flash_ref_attention.cu"
-BUILD_DIR = _PKG / "build"
-LIBRARY = BUILD_DIR / "libflash_ref_attention.so"
+from fsvid2vid_tpu_torch.ops.cuda_build import CudaLibrary
+
 MAX_C = 128            # channels the kernel takes (csrc MAX_C)
 SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
 
-_lib = None
+
+def _declare(lib):
+    fn = lib.fsv_flash_ref_attention
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    smem = lib.fsv_flash_ref_attention_smem_bytes
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_size_t
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    cuda_home_nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                                  "bin", "nvcc")
-    if nvcc is None and os.path.exists(cuda_home_nvcc):
-        nvcc = cuda_home_nvcc
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the flash_ref_attention kernel")
-    return nvcc
-
-
-def build(verbose: bool = False) -> tuple[float, str]:
-    """Compile the kernel into LIBRARY; returns (seconds, compiler output).
-
-    Writes to a temporary file and renames it, so concurrent builds never
-    leave a half-written library behind."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(SOURCE)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, LIBRARY)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return time.perf_counter() - t0, res.stdout + res.stderr
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        if (not LIBRARY.exists()
-                or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime):
-            build()
-        lib = ctypes.CDLL(str(LIBRARY))
-        fn = lib.fsv_flash_ref_attention
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        smem = lib.fsv_flash_ref_attention_smem_bytes
-        smem.argtypes = [ctypes.c_int] * 3
-        smem.restype = ctypes.c_size_t
-        _lib = lib
-    return _lib
+KERNEL = CudaLibrary("flash_ref_attention", _declare)
 
 
 def flash_ref_attention_plain(query, key, xf, lf, n_refs: int,
@@ -158,7 +107,7 @@ def flash_ref_attention(query, key, xf, lf, n_refs: int):
         raise ValueError(f"flash_ref_attention: device {query.device} not "
                          "supported")
     _check(query, key, xf, lf, n_refs)
-    lib = _load()
+    lib = KERNEL.load()
     b, hw, c = query.shape
     n = key.shape[1]
     smem = lib.fsv_flash_ref_attention_smem_bytes(c, n_refs, lf is not None)

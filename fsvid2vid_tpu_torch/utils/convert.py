@@ -9,7 +9,12 @@ paths map to torch keys the same way, conv kernels go from HWIO to
 
 Pass the variables before spectral-norm folding: a kernel whose module has
 u / v in "spectral" becomes `weight_orig`; fold on the port side
-(inference.fold.fold_spectral_norm).
+(inference.fold.fold_spectral_norm).  The train-time state (spectral u / v,
+batch-norm running statistics) is carried like the parameters.
+
+`discriminator_state_dict_from_jax`, `flownet2_state_dict_from_jax` and
+`vgg_state_dict_from_jax` do the same for the other networks, as inverses of
+the JAX package's import_discriminator, import_flownet2 and import_vgg19.
 """
 from __future__ import annotations
 
@@ -116,4 +121,70 @@ def state_dict_from_jax(variables: Mapping, cfg: Config) -> Dict[str, torch.Tens
     for src, dst in aliases:
         for k in [k for k in sd if k.startswith(src)]:
             sd[dst + k[len(src):]] = sd[k]
+    return sd
+
+
+def _convert(leaf: str, value, is_sn: bool = False):
+    """(torch leaf name, array) of one flax leaf of a plain or spectral conv
+    / dense / norm module."""
+    w = np.asarray(value, np.float32)
+    if leaf == "kernel":
+        w = np.transpose(w, (3, 2, 0, 1)) if w.ndim == 4 else w.T
+        return ("weight_orig" if is_sn else "weight"), w
+    return _LEAF[leaf], w
+
+
+def discriminator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's MultiscaleDiscriminator state_dict from JAX variables
+    ({"params", "spectral"}).  flax `discriminator_K/modelN_conv` is the
+    reference's `discriminator_K.modelN.0` for the first and the last layer
+    and `.modelN.0.0` for the middle ones, whose norm is `.modelN.0.1`."""
+    sn_modules = {path[:-1] for path, _ in _leaves(variables.get("spectral", {}))}
+    sd: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "spectral"):
+        tree = variables.get(coll, {})
+        for disc, layers in tree.items():
+            last = max(int(name[len("model"):-len("_conv")])
+                       for name in variables["params"][disc] if name.endswith("_conv"))
+            for path, value in _leaves(layers):
+                module, leaf = path[0], path[-1]
+                n, kind = module[len("model"):].rsplit("_", 1)
+                middle = 0 < int(n) < last
+                if kind == "norm":
+                    prefix = f"{disc}.model{n}.0.1"
+                else:
+                    prefix = f"{disc}.model{n}.0" + (".0" if middle else "")
+                name, w = _convert(leaf, value, (disc, module) in sn_modules)
+                sd[f"{prefix}.{name}"] = torch.tensor(w)
+    return sd
+
+
+def flownet2_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's FlowNet2 state_dict (the reference checkpoint's names) from
+    the JAX FlowNet2 parameters.  `<layer>/conv` and `<layer>/deconv` are the
+    Sequential's `<layer>.0`; transposed-conv kernels (deconv*,
+    upsampled_flow*) go from the flipped HWIO of the JAX formulation back to
+    torch's (Cin, Cout, kh, kw)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        mods, leaf = path[:-1], path[-1]
+        transposed = any(m == "deconv" or m.startswith("upsampled_flow") for m in mods)
+        prefix = ".".join("0" if m in ("conv", "deconv") else m for m in mods)
+        w = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            if transposed:
+                w = np.ascontiguousarray(np.transpose(w, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+            else:
+                w = np.transpose(w, (3, 2, 0, 1))
+        sd[f"{prefix}.{'weight' if leaf == 'kernel' else 'bias'}"] = torch.tensor(w)
+    return sd
+
+
+def vgg_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's Vgg19Features state_dict (torchvision's `features.N.*`)
+    from the JAX Vgg19Features parameters (`conv_N/{kernel,bias}`)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, value in _leaves(params):
+        name, w = _convert(path[-1], value)
+        sd[f"features.{path[-2].split('_')[1]}.{name}"] = torch.tensor(w)
     return sd

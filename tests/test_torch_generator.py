@@ -251,13 +251,19 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", {os.path.join(REPO, "chip_smoke.py")!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not any(m.split(".")[0] in ("jax", "flax", "fsvid2vid_tpu") for m in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd="/", env=env, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15
+    names = set(res.stdout.split())
+    assert len(names) >= 27
+    assert {"fsvid2vid_tpu_torch." + m for m in (
+        "ops.cuda_build", "ops.cost_volume", "ops.attention_kernel",
+        "models.flownet.flownet2", "models.discriminator", "models.vgg",
+        "losses.gan", "losses.collector", "training.flow_teacher",
+        "training.state", "training.step")} <= names
 
 
 def test_entry_points_run_on_cuda_unless_cpu_is_named():

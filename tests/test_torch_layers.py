@@ -146,7 +146,7 @@ def test_sn_unfolded_equals_folded(rng):
     jm = jl.SNConv(6, 3)
     x = rng.randn(1, 8, 8, 4).astype(np.float32)
     v = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x)), rng)
-    tm = tl.SNConv(4, 6, 3)
+    tm = tl.SNConv(4, 6, 3).eval()
     tm.load_state_dict(state_dict_from_jax(to_numpy(v), tconfig.face_config()))
     live = tm(nchw(x))
     np.testing.assert_allclose(fold_spectral_norm(tm)(nchw(x)).detach().numpy(),

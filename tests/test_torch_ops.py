@@ -95,3 +95,73 @@ def test_avg_pool_matches_jax(rng, h, w):
     ref = np.asarray(jio.avg_pool(jnp.asarray(x), 3, 2, 1))
     np.testing.assert_allclose(nhwc(tio.avg_pool(nchw(x), 3, 2, 1)), ref,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("h,w", [(9, 11), (8, 8)])
+def test_avg_pool_without_padding_count_matches_jax(rng, h, w):
+    """The discriminator pyramid's pool: padding is not counted."""
+    x = rng.randn(2, h, w, 3).astype(np.float32)
+    ref = np.asarray(jio.avg_pool(jnp.asarray(x), 3, 2, 1, count_include_pad=False))
+    out = nhwc(tio.avg_pool(nchw(x), 3, 2, 1, count_include_pad=False))
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_max_pool_matches_jax(rng):
+    """The 15 x 15 stride-1 dilation of the foreground mask, and VGG's 2 x 2."""
+    x = rng.randn(2, 20, 17, 2).astype(np.float32)
+    for window, stride, pad in ((15, 1, 7), (2, 2, 0)):
+        ref = np.asarray(jio.max_pool(jnp.asarray(x), window, stride, pad))
+        np.testing.assert_array_equal(nhwc(tio.max_pool(nchw(x), window, stride, pad)), ref)
+
+
+def test_channel_norm_matches_jax(rng):
+    x = rng.randn(2, 6, 7, 5).astype(np.float32)
+    ref = np.asarray(jio.channel_norm(jnp.asarray(x)))
+    out = nhwc(tio.channel_norm(nchw(x)))
+    assert out.shape == (2, 6, 7, 1)
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("size", [(64, 64), (8, 20), (30, 7), (10, 12), (5, 3)])
+def test_resize_bilinear_matches_jax(rng, size):
+    """jax.image.resize antialiases when it shrinks (F.interpolate does not by
+    default): the teacher shrinks to multiples of 64 and enlarges back."""
+    x = rng.randn(2, 10, 12, 3).astype(np.float32)
+    ref = np.asarray(jio.resize_bilinear(jnp.asarray(x), size))
+    out = nhwc(tio.resize_bilinear(nchw(x), size))
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_upsample_bilinear_matches_flownet2(rng):
+    from fsvid2vid_tpu.models.flownet.flownet2 import upsample_bilinear as jup
+    x = rng.randn(2, 5, 6, 2).astype(np.float32)
+    ref = np.asarray(jup(jnp.asarray(x), 4))
+    out = nhwc(tio.upsample_bilinear(nchw(x), 4))
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+    # enlarging equals torch's own half-pixel bilinear
+    own = torch.nn.functional.interpolate(nchw(x), scale_factor=4, mode="bilinear")
+    np.testing.assert_allclose(out, nhwc(own), atol=ATOL)
+
+
+def test_fg_masks_match_jax(rng):
+    """Pose labels carry the DensePose part channel the masks derive from;
+    face configurations have no foreground."""
+    from fsvid2vid_tpu.config import pose_config as jpose
+    from fsvid2vid_tpu.models import input_process as jip
+    from fsvid2vid_tpu_torch.config import face_config, pose_config
+    from fsvid2vid_tpu_torch.models import input_process as tip
+    label = -np.ones((2, 40, 36, 6), np.float32)         # background is -1
+    label[:, 14:20, 10:15] = rng.rand(2, 6, 5, 6)          # a small body blob
+    ref_label = np.roll(label, 12, axis=2)
+    jcfg, tcfg = jpose(), pose_config()
+    want = np.asarray(jip.get_fg_mask(jcfg, jnp.asarray(label)))
+    got = tip.get_fg_mask(tcfg, torch.from_numpy(label))
+    assert 0.1 < want.mean() < 0.9
+    np.testing.assert_array_equal(got.numpy(), want)
+    want_u = np.asarray(jip.combine_fg_mask(
+        jnp.asarray(want), jip.get_fg_mask(jcfg, jnp.asarray(ref_label)), True))
+    got_u = tip.combine_fg_mask(got, tip.get_fg_mask(tcfg, torch.from_numpy(ref_label)), True)
+    np.testing.assert_array_equal(got_u.numpy(), want_u)
+    assert tip.get_fg_mask(face_config(), torch.from_numpy(label)) is None
+    assert tip.combine_fg_mask(None, None, False) == 1.0
