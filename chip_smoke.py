@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (multi-reference flash attention, FlowNetC
-cost volume) from the sources in this checkout, both at once, and holds each
-against its plain PyTorch version on the card.  Then it drives the port's
-two main paths end to end at the full width of face_config:
+Builds the port's CUDA kernels from the sources in this checkout, all at
+once: multi-reference flash attention on two routes (the bf16 tensor-core
+kernel for sm_90a and the CUDA-core kernel that keeps f32), and the FlowNetC
+cost volume.  It holds each against its plain PyTorch version on the card,
+times the bf16 attention kernel against the CUDA-core design it replaced,
+and then drives the port's two main paths end to end at the full width of
+face_config:
 
   * serving: K-shot face synthesis at 512 px with K = 8 references (the
-    attention kernel once per frame), and the K = 1 face-256 forward;
+    attention kernel once per frame: bf16 frames on the tensor-core route,
+    f32 frames on the CUDA-core route), and the K = 1 face-256 forward;
   * training: face 256 px at batch 4 with seeded random G, D, VGG19 and
     FlowNet2; the flow teacher (the cost-volume kernel once per flow call),
     then single-frame and temporal steps of `train_step` and
@@ -45,6 +49,13 @@ H100_BYTES_PER_S = 3.35e12
 # the attention at face 512 px, K = 8, n_downsample_A = 2 (B=1, hw=128^2)
 SLICE = dict(b=1, hw=128 * 128, n_refs=8, c=128, has_lf=True)
 RAGGED = dict(b=2, hw=13 * 11, n_refs=3, c=40, has_lf=False)
+# hw_key = 40 < 64 keys per tile: every tile of the tensor-core kernel is a
+# masked reference tail
+SHORT_REFS = dict(b=1, hw=40, n_refs=5, c=64, has_lf=True)
+# energies with a standard deviation of ~16 instead of ~4, so the running max
+# moves a lot within a reference
+SHARP = dict(b=1, hw=2048, n_refs=4, c=128, has_lf=True)
+SHARPNESS = {"sharp": 4.0}
 # kernel vs plain version, max abs error on outputs / on the masses:
 #  ragged, f32: the same f32 math in another order: 1e-4 / 1e-5 (the CPU
 #    tests' tolerances);
@@ -55,7 +66,10 @@ RAGGED = dict(b=2, hw=13 * 11, n_refs=3, c=40, has_lf=False)
 #  bf16: the kernel rounds p to bf16 before the value products (as the TPU
 #    kernel does) and both round the outputs to bf16: 3e-2 / 1e-4.
 TOL = {("ragged", "float32"): (1e-4, 1e-5), ("slice", "float32"): (5e-4, 1e-4),
-       ("ragged", "bfloat16"): (3e-2, 1e-4), ("slice", "bfloat16"): (3e-2, 1e-4)}
+       **{(case, "bfloat16"): (3e-2, 1e-4)
+          for case in ("ragged", "slice", "short_refs", "sharp")}}
+# the bf16 kernel timed in turns against the CUDA-core design it replaced
+TIMING_TURNS = ("sm90", "cuda_core", "cuda_core", "sm90")
 # K = 8 slice, f32 frames with the kernel vs with the plain attention: the
 # attention outputs differ by <= 5e-4 (above); through the decoder: 2e-3
 SLICE_FRAME_TOL = 2e-3
@@ -87,14 +101,15 @@ def phase_build():
     from fsvid2vid_tpu_torch.ops import attention_kernel as ak
     from fsvid2vid_tpu_torch.ops import cost_volume as cv
     t0 = time.perf_counter()
-    pending = [(lib, lib.start_build(verbose=True)) for lib in (ak.KERNEL, cv.KERNEL)]
+    pending = [(lib, lib.start_build(verbose=True))
+               for lib in (ak.KERNEL_SM90, ak.KERNEL, cv.KERNEL)]
     for lib, finish in pending:
         seconds, log = finish()
         ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
         emit({"phase": "build", "kernel": lib.name,
               "source": str(lib.source.relative_to(REPO)), "seconds": seconds,
-              "ptxas": ptxas[:8], "ptxas_lines": len(ptxas)})
+              "ptxas": ptxas[:12], "ptxas_lines": len(ptxas)})
     emit({"phase": "build", "all_seconds": time.perf_counter() - t0})
 
 
@@ -111,12 +126,12 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def attention_inputs(torch, b, hw, n_refs, c, has_lf, dtype, seed=0):
-    """Seeded inputs whose energies have a standard deviation of ~4, so the
-    softmax is neither one-hot nor flat."""
+def attention_inputs(torch, b, hw, n_refs, c, has_lf, dtype, seed=0, sharpness=1.0):
+    """Seeded inputs whose energies have a standard deviation of
+    ~4 * sharpness, so the softmax is neither one-hot nor flat."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     n = n_refs * hw
-    scale = 2.0 / c ** 0.25
+    scale = 2.0 * sharpness ** 0.5 / c ** 0.25
 
     def mk(rows, s=1.0):
         return (torch.randn(b, rows, c, device="cuda", generator=g) * s).to(dtype)
@@ -149,32 +164,52 @@ def library_attention(torch, q, k, xf, lf, n_refs):
 
 
 def check_kernel(torch, dtype_name, case, shape, timed):
-    from fsvid2vid_tpu_torch.ops.attention_kernel import (
-        flash_ref_attention, flash_ref_attention_plain)
+    """The routed kernel against the plain version on one seeded input; the
+    route follows from the dtype and c (ops/attention_kernel.py route_for)."""
+    from fsvid2vid_tpu_torch.ops import attention_kernel as ak
     dtype = getattr(torch, dtype_name)
     n_refs = shape["n_refs"]
-    q, k, xf, lf = attention_inputs(torch, dtype=dtype, **shape)
-    ox, ol, vis = flash_ref_attention(q, k, xf, lf, n_refs)
+    route = ak.route_for("cuda", dtype, shape["c"])
+    q, k, xf, lf = attention_inputs(torch, dtype=dtype,
+                                    sharpness=SHARPNESS.get(case, 1.0), **shape)
+    before = dict(ak.flash_ref_attention.launches_by_route)
+    ox, ol, vis = ak.flash_ref_attention(q, k, xf, lf, n_refs)
     torch.cuda.synchronize()
-    px, pl_, pvis = flash_ref_attention_plain(q, k, xf, lf, n_refs)
+    moved = {r: n - before[r] for r, n in ak.flash_ref_attention.launches_by_route.items()}
+    if moved != {r: int(r == route) for r in moved}:
+        raise AssertionError(f"flash_ref_attention {case} {dtype_name}: launches by "
+                             f"route {moved}, expected one on {route}")
+    px, pl_, pvis = ak.flash_ref_attention_plain(q, k, xf, lf, n_refs)
     torch.cuda.synchronize()
     for name, t in (("out_x", ox), ("out_l", ol), ("vis", vis)):
         if t is not None and not torch.isfinite(t).all():
-            raise AssertionError(f"kernel {name} not finite ({dtype_name})")
+            raise AssertionError(f"kernel {name} not finite ({case}, {dtype_name})")
     err_out = (ox.float() - px.float()).abs().max().item()
     if lf is not None:
         err_out = max(err_out, (ol.float() - pl_.float()).abs().max().item())
     err_vis = (vis - pvis).abs().max().item()
     tol_out, tol_vis = TOL[case, dtype_name]
     ok = err_out <= tol_out and err_vis <= tol_vis
-    res = {"phase": "kernel_check", "kernel": "flash_ref_attention",
+    res = {"phase": "kernel_check", "kernel": "flash_ref_attention", "route": route,
            "case": case, "dtype": dtype_name, "shape": shape,
+           "sharpness": SHARPNESS.get(case, 1.0),
            "max_abs_err_out": err_out, "tol_out": tol_out,
            "max_abs_err_vis": err_vis, "tol_vis": tol_vis, "ok": ok}
     if timed and ok:
-        res["ms"] = cuda_ms(torch, lambda: flash_ref_attention(q, k, xf, lf, n_refs), 5)
+        if route == "sm90":   # in turns against the CUDA-core design it replaced
+            launch = {"sm90": ak._launch_sm90, "cuda_core": ak._launch_cuda_core}
+            turns = [(r, cuda_ms(torch, lambda r=r: launch[r](q, k, xf, lf, n_refs), 5))
+                     for r in TIMING_TURNS]
+            res["turns_ms"] = turns
+            res["sm_clock_power_temperature"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                 "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+            res["ms"] = sum(ms for r, ms in turns if r == "sm90") / 2
+            res["previous_design_ms"] = sum(ms for r, ms in turns if r == "cuda_core") / 2
+        else:
+            res["ms"] = cuda_ms(torch, lambda: ak.flash_ref_attention(q, k, xf, lf, n_refs), 5)
         res["plain_ms"] = cuda_ms(
-            torch, lambda: flash_ref_attention_plain(q, k, xf, lf, n_refs), 2)
+            torch, lambda: ak.flash_ref_attention_plain(q, k, xf, lf, n_refs), 2)
         lib = library_attention(torch, q, k, xf, lf, n_refs)
         out = lib()
         res["library_max_abs_err_vis"] = (out[:, 0, :, -n_refs:].float()
@@ -188,6 +223,8 @@ def check_kernel(torch, dtype_name, case, shape, timed):
                    bound_ms=1e3 * max(flops / peak, nbytes / H100_BYTES_PER_S),
                    bound_by=("operations" if flops / peak >= nbytes / H100_BYTES_PER_S
                              else "bytes"))
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        res["tflops"] = flops / res["ms"] / 1e9
     emit(res)
     if not ok:
         raise AssertionError(f"flash_ref_attention {case} {dtype_name}: error "
@@ -200,6 +237,8 @@ def phase_kernels(torch):
                  for d in ("bfloat16", "float32")}
     for d in ("bfloat16", "float32"):
         check_kernel(torch, d, "ragged", RAGGED, False)
+    for case, shape in (("short_refs", SHORT_REFS), ("sharp", SHARP)):
+        check_kernel(torch, "bfloat16", case, shape, False)
     torch.cuda.empty_cache()
     return slice_res
 
@@ -369,23 +408,39 @@ def phase_slice(torch):
            "n_adaptive_layers": cfg.n_adaptive_layers, "nff": cfg.nff,
            "n_blocks_F": cfg.n_blocks_F, "n_shot": cfg.n_shot, "size": cfg.fine_size,
            "frames_per_dtype": 2 * N_FRAMES}
+    counts = ak.flash_ref_attention.launches_by_route
     ak.flash_ref_attention.launches = 0
-    out = {}
+    for route in counts:
+        counts[route] = 0
+    out, by_dtype = {}, {}
     for dtype in ("bfloat16", "float32"):
+        before = dict(counts)
         pipe = InferencePipeline(cfg, g, compute_dtype=dtype)
         out[dtype] = run_frames(torch, pipe, labels, ref_labels, ref_images)
+        by_dtype[dtype] = {r: counts[r] - before[r] for r in counts}
     launches = ak.flash_ref_attention.launches
-    res["launches"] = launches
+    res.update(launches=launches, launches_by_route=dict(counts),
+               launches_by_dtype=by_dtype)
     for dtype, (frames, ms, reset_ms, ref_idx) in out.items():
         res[dtype] = {"frame_ms": ms, "reset_ms": reset_ms, "ref_idx": ref_idx,
                       "frame_std": frames.std().item()}
     if launches != 4 * N_FRAMES:
         raise AssertionError(f"kernel launches {launches} != frames {4 * N_FRAMES}")
+    # bf16 frames on the tensor-core route only, f32 frames on the CUDA cores
+    want = {"bfloat16": {"sm90": 2 * N_FRAMES, "cuda_core": 0},
+            "float32": {"sm90": 0, "cuda_core": 2 * N_FRAMES}}
+    if by_dtype != want:
+        raise AssertionError(f"launches by dtype and route {by_dtype} != {want}")
     for dtype in ("bfloat16", "float32"):   # one warm frame with warp_prev
         pipe = InferencePipeline(cfg, g, compute_dtype=dtype)
         pipe.reset(ref_labels, ref_images, labels[0])
         pipe.step(labels[0])
         res[f"profile_{dtype}"] = profile_step(torch, pipe, labels[1])
+    sm90_rows = [r for r in res["profile_bfloat16"]["top"]
+                 if "flash_ref_attention_sm90" in r["kernel"]]
+    if not sm90_rows:
+        raise AssertionError("the bf16 frame's profile shows no sm90 attention kernel")
+    res["profile_bfloat16"]["attention_ms"] = sm90_rows[0]["ms"]
 
     # the same f32 pipeline with the plain attention, on the card
     g.attention = ak.flash_ref_attention_plain
@@ -649,19 +704,23 @@ def main() -> int:
     train_res = phase_train(torch)
     phase_small_train(torch)
     bf, f32 = kern["bfloat16"], kern["float32"]
+    routes = slice_res["launches_by_route"]
     cv_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     cv_main = cv_res["slice", "float32"]   # the teacher runs in f32
     emit({"kernels": [{
         "name": "flash_ref_attention", "route": "cuda",
-        "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention.cu",
+        "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
         "replaces": "fsvid2vid_tpu/ops/pallas/attention_kernel.py:158",
-        "launches": slice_res["launches"],
+        "launches": routes["sm90"],
         "max_abs_err": bf["max_abs_err_out"], "ms": bf["ms"],
         "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
         "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
+        "previous_design_ms": bf["previous_design_ms"], "bound_share": bf["bound_share"],
         "dtype": "bfloat16", "shape": SLICE, "card": smi,
-        "f32": {k: f32[k] for k in ("max_abs_err_out", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}}, {
+        "f32": {"source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention.cu",
+                "launches": routes["cuda_core"],
+                **{k: f32[k] for k in ("max_abs_err_out", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}}}, {
         "name": "cost_volume", "route": "cuda",
         "source": "fsvid2vid_tpu_torch/csrc/cost_volume.cu",
         "replaces": "fsvid2vid_tpu/ops/pallas/cost_volume_kernel.py:71",

@@ -1,4 +1,4 @@
-"""Multi-reference flash attention: the CUDA kernel's wrapper and its plain
+"""Multi-reference flash attention: the CUDA kernels' wrapper and its plain
 PyTorch version.
 
 Port of fsvid2vid_tpu/ops/pallas/attention_kernel.py::flash_ref_attention.
@@ -8,10 +8,18 @@ With N = n_refs * hw_key keys:
   out_l[b,q,:] = the same weights applied to lf (optional)
   vis[b,q,r]   = the softmax mass on the keys of reference r
 
-The kernel (csrc/flash_ref_attention.cu) is built with nvcc for sm_90a on
-first use into fsvid2vid_tpu_torch/build/ and loaded with ctypes
-(ops/cuda_build.py).  The wrapper runs the plain version only for CPU tensors; for CUDA tensors it
-launches the kernel or raises.
+Two hand-written kernels compute it on the card; `route_for` picks one from
+where the inputs lie, their dtype and their channel count, before any launch:
+
+  CPU tensor                          -> the plain version
+  CUDA, bf16, c % 8 == 0, c <= 128    -> "sm90": csrc/flash_ref_attention_sm90.cu
+                                         (wgmma, TMA, warp specialisation)
+  CUDA, f32, or bf16 with c % 8 != 0  -> "cuda_core": csrc/flash_ref_attention.cu
+
+Each is built with nvcc for sm_90a on first use into fsvid2vid_tpu_torch/build/
+and loaded with ctypes (ops/cuda_build.py).  A CUDA call launches the routed
+kernel or raises: nothing falls back to the other kernel or to the plain
+version.
 """
 from __future__ import annotations
 
@@ -21,8 +29,21 @@ import torch
 
 from fsvid2vid_tpu_torch.ops.cuda_build import CudaLibrary
 
-MAX_C = 128            # channels the kernel takes (csrc MAX_C)
+MAX_C = 128            # channels the kernels take (csrc MAX_C)
 SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
+
+# the sm90 kernel's shared memory (csrc/flash_ref_attention_sm90.cu
+# smem_bytes): 1024 bytes of alignment slack, a 128-query tile and 3 stages
+# of 64-key tiles [K | xf | lf] in 64-channel boxes, 7 mbarriers, and a
+# (128, n_refs) table of float2
+_SM90_STAGES = 3
+
+
+def sm90_smem_bytes(c: int, n_refs: int, has_lf: bool) -> int:
+    boxes = 1 if c <= 64 else 2
+    stage = boxes * 64 * 128 * (3 if has_lf else 2)
+    return (1024 + boxes * 128 * 128 + _SM90_STAGES * stage + 8 * (2 * _SM90_STAGES + 1)
+            + 128 * n_refs * 8)
 
 
 def _declare(lib):
@@ -35,7 +56,25 @@ def _declare(lib):
     smem.restype = ctypes.c_size_t
 
 
+def _declare_sm90(lib):
+    fn = lib.fsv_flash_ref_attention_sm90
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
 KERNEL = CudaLibrary("flash_ref_attention", _declare)
+KERNEL_SM90 = CudaLibrary("flash_ref_attention_sm90", _declare_sm90)
+
+
+def route_for(device_type: str, dtype: torch.dtype, c: int) -> str:
+    """The rule: "plain", "sm90" or "cuda_core" for inputs on `device_type`
+    of `dtype` with `c` channels.  f32 stays on the CUDA cores: TF32 tensor
+    cores would not hold the f32 checks."""
+    if device_type == "cpu":
+        return "plain"
+    if dtype == torch.bfloat16 and c % 8 == 0 and c <= MAX_C:
+        return "sm90"
+    return "cuda_core"
 
 
 def flash_ref_attention_plain(query, key, xf, lf, n_refs: int,
@@ -94,6 +133,84 @@ def _check(query, key, xf, lf, n_refs):
                          "(the kernel stages c channels in shared memory)")
 
 
+def _check_sm90(query, key, xf, lf, n_refs):
+    """What the sm90 kernel needs beyond _check: bf16, c % 8 == 0 (TMA rows
+    are 16-byte strided), 16-byte aligned tensors, and its shared memory."""
+    _check(query, key, xf, lf, n_refs)
+    c = query.shape[2]
+    if query.dtype != torch.bfloat16 or c % 8:
+        raise ValueError(f"flash_ref_attention sm90: needs bfloat16 and c % 8 == 0, "
+                         f"got {query.dtype} and c={c}")
+    tensors = [query, key, xf] + ([lf] if lf is not None else [])
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_ref_attention sm90: tensors must be 16-byte aligned")
+    smem = sm90_smem_bytes(c, n_refs, lf is not None)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_ref_attention sm90: n_refs={n_refs} needs {smem} "
+                         f"bytes of shared memory (limit {SMEM_LIMIT})")
+
+
+def _outputs(query, lf, n_refs):
+    b, hw, _ = query.shape
+    out_x = torch.empty_like(query)
+    out_l = torch.empty_like(query) if lf is not None else None
+    vis = torch.empty(b, hw, n_refs, device=query.device, dtype=torch.float32)
+    return out_x, out_l, vis
+
+
+def _count(route):
+    flash_ref_attention.launches += 1
+    flash_ref_attention.launches_by_route[route] += 1
+
+
+def _raise_on(err, route):
+    if err == 0:
+        return
+    what = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
+            -2: "a TMA tensor map could not be encoded"}.get(err, f"CUDA error {err}")
+    raise RuntimeError(f"flash_ref_attention ({route}): kernel launch failed: {what}")
+
+
+def _launch_sm90(query, key, xf, lf, n_refs):
+    _check_sm90(query, key, xf, lf, n_refs)
+    lib = KERNEL_SM90.load()
+    b, hw, c = query.shape
+    out_x, out_l, vis = _outputs(query, lf, n_refs)
+    with torch.cuda.device(query.device):
+        err = lib.fsv_flash_ref_attention_sm90(
+            query.data_ptr(), key.data_ptr(), xf.data_ptr(),
+            lf.data_ptr() if lf is not None else None,
+            out_x.data_ptr(), out_l.data_ptr() if out_l is not None else None,
+            vis.data_ptr(), b, hw, key.shape[1], c, n_refs,
+            torch.cuda.current_stream(query.device).cuda_stream)
+    _raise_on(err, "sm90")
+    _count("sm90")
+    return out_x, out_l, vis
+
+
+def _launch_cuda_core(query, key, xf, lf, n_refs):
+    """The CUDA-core kernel: the f32 route, and bf16 with c % 8 != 0."""
+    _check(query, key, xf, lf, n_refs)
+    lib = KERNEL.load()
+    b, hw, c = query.shape
+    smem = lib.fsv_flash_ref_attention_smem_bytes(c, n_refs, lf is not None)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"flash_ref_attention: n_refs={n_refs} needs {smem} "
+                         f"bytes of shared memory (limit {SMEM_LIMIT})")
+    out_x, out_l, vis = _outputs(query, lf, n_refs)
+    with torch.cuda.device(query.device):
+        err = lib.fsv_flash_ref_attention(
+            query.data_ptr(), key.data_ptr(), xf.data_ptr(),
+            lf.data_ptr() if lf is not None else None,
+            out_x.data_ptr(), out_l.data_ptr() if out_l is not None else None,
+            vis.data_ptr(), b, hw, key.shape[1], c, n_refs,
+            int(query.dtype == torch.bfloat16),
+            torch.cuda.current_stream(query.device).cuda_stream)
+    _raise_on(err, "cuda_core")
+    _count("cuda_core")
+    return out_x, out_l, vis
+
+
 def flash_ref_attention(query, key, xf, lf, n_refs: int):
     """Streaming-softmax multi-reference attention (forward only).
 
@@ -101,35 +218,16 @@ def flash_ref_attention(query, key, xf, lf, n_refs: int):
     float32 or bfloat16.  Returns (out_x (B, hw, c), out_l (B, hw, c) or None,
     vis (B, hw, n_refs) float32).  Accumulation is f32; for bf16 inputs the
     softmax weights are rounded to bf16 before the value products."""
-    if query.device.type == "cpu":
-        return flash_ref_attention_plain(query, key, xf, lf, n_refs)
-    if query.device.type != "cuda":
+    if query.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_ref_attention: device {query.device} not "
                          "supported")
-    _check(query, key, xf, lf, n_refs)
-    lib = KERNEL.load()
-    b, hw, c = query.shape
-    n = key.shape[1]
-    smem = lib.fsv_flash_ref_attention_smem_bytes(c, n_refs, lf is not None)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"flash_ref_attention: n_refs={n_refs} needs {smem} "
-                         f"bytes of shared memory (limit {SMEM_LIMIT})")
-    out_x = torch.empty_like(query)
-    out_l = torch.empty_like(query) if lf is not None else None
-    vis = torch.empty(b, hw, n_refs, device=query.device, dtype=torch.float32)
-    with torch.cuda.device(query.device):
-        err = lib.fsv_flash_ref_attention(
-            query.data_ptr(), key.data_ptr(), xf.data_ptr(),
-            lf.data_ptr() if lf is not None else None,
-            out_x.data_ptr(), out_l.data_ptr() if out_l is not None else None,
-            vis.data_ptr(), b, hw, n, c, n_refs,
-            int(query.dtype == torch.bfloat16),
-            torch.cuda.current_stream(query.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_ref_attention: kernel launch failed with "
-                           f"CUDA error {err}")
-    flash_ref_attention.launches += 1
-    return out_x, out_l, vis
+    route = route_for(query.device.type, query.dtype, query.shape[-1])
+    if route == "plain":
+        return flash_ref_attention_plain(query, key, xf, lf, n_refs)
+    launch = _launch_sm90 if route == "sm90" else _launch_cuda_core
+    return launch(query, key, xf, lf, n_refs)
 
 
+# launches of either kernel, and by route
 flash_ref_attention.launches = 0
+flash_ref_attention.launches_by_route = {"sm90": 0, "cuda_core": 0}
