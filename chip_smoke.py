@@ -4,19 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, all at
-once: multi-reference flash attention on two routes (the bf16 tensor-core
-kernel for sm_90a and the CUDA-core kernel that keeps f32), and the FlowNetC
-cost volume.  It holds each against its plain PyTorch version on the card,
-times the bf16 attention kernel against the CUDA-core design it replaced,
-and then drives the port's two main paths end to end at the full width of
-face_config:
+once (one nvcc per source): multi-reference flash attention on three routes
+(the bf16 tensor-core kernel, the f32 tensor-core kernel on split-bf16
+products, and the CUDA-core kernel that keeps c % 8 != 0) and the FlowNetC
+cost volume on two (the banded tensor-core product for stride 2, the
+CUDA-core kernel for other grids).  It holds each against its plain PyTorch
+version on the card, times each tensor-core kernel in turns against the
+CUDA-core design it replaced, and then drives the port's two main paths end
+to end at the full width of face_config:
 
   * serving: K-shot face synthesis at 512 px with K = 8 references (the
-    attention kernel once per frame: bf16 frames on the tensor-core route,
-    f32 frames on the CUDA-core route), and the K = 1 face-256 forward;
+    attention kernel once per frame: bf16 frames on the bf16 tensor-core
+    route, f32 frames on the f32 one), and the K = 1 face-256 forward;
   * training: face 256 px at batch 4 with seeded random G, D, VGG19 and
-    FlowNet2; the flow teacher (the cost-volume kernel once per flow call),
-    then single-frame and temporal steps of `train_step` and
+    FlowNet2; the flow teacher (the tensor-core cost volume once per flow
+    call), then single-frame and temporal steps of `train_step` and
     `train_step_faithful` in bf16, two steps in f32, and a small model's
     step on the card against the CPU.
 
@@ -43,12 +45,15 @@ REPO = Path(__file__).resolve().parent
 
 # H100 SXM data sheet, dense, at the 700 W power limit
 H100_BF16_FLOPS = 989e12   # tensor cores
+H100_TF32_FLOPS = 495e12   # tensor cores
 H100_F32_FLOPS = 67e12     # outside the tensor cores
 H100_BYTES_PER_S = 3.35e12
 
 # the attention at face 512 px, K = 8, n_downsample_A = 2 (B=1, hw=128^2)
 SLICE = dict(b=1, hw=128 * 128, n_refs=8, c=128, has_lf=True)
 RAGGED = dict(b=2, hw=13 * 11, n_refs=3, c=40, has_lf=False)
+# c % 8 != 0: the CUDA-core kernel's route in both dtypes
+RAGGED_C36 = dict(b=1, hw=150, n_refs=3, c=36, has_lf=True)
 # hw_key = 40 < 64 keys per tile: every tile of the tensor-core kernel is a
 # masked reference tail
 SHORT_REFS = dict(b=1, hw=40, n_refs=5, c=64, has_lf=True)
@@ -63,13 +68,23 @@ SHARPNESS = {"sharp": 4.0}
 #    rounding grows to ~sqrt(N) * 6e-8 ~ 2e-5 relative on outputs of up to
 #    ~5: 5e-4 / 1e-4 (one PyTorch attention call differs from the plain
 #    version by the same order);
+#  sharp, f32: energies of std ~16 (|s| up to ~70); the exponential turns
+#    an energy's absolute error into the weight's relative error, so here a
+#    split of q and k into 2 bf16 parts (16 bits) errs ~10x more than the
+#    f32 kernel's 3 (24 bits): the limit lies between the two, 1.5e-4 /
+#    2.5e-5 (PERF.md §6 has the readings of both on the card);
 #  bf16: the kernel rounds p to bf16 before the value products (as the TPU
 #    kernel does) and both round the outputs to bf16: 3e-2 / 1e-4.
-TOL = {("ragged", "float32"): (1e-4, 1e-5), ("slice", "float32"): (5e-4, 1e-4),
+TOL = {("slice", "float32"): (5e-4, 1e-4), ("sharp", "float32"): (1.5e-4, 2.5e-5),
+       **{(case, "float32"): (1e-4, 1e-5)
+          for case in ("ragged", "ragged_c36", "short_refs")},
        **{(case, "bfloat16"): (3e-2, 1e-4)
-          for case in ("ragged", "slice", "short_refs", "sharp")}}
-# the bf16 kernel timed in turns against the CUDA-core design it replaced
-TIMING_TURNS = ("sm90", "cuda_core", "cuda_core", "sm90")
+          for case in ("ragged", "ragged_c36", "slice", "short_refs", "sharp")}}
+ATTENTION_CASES = {"slice": SLICE, "ragged": RAGGED, "ragged_c36": RAGGED_C36,
+                   "short_refs": SHORT_REFS, "sharp": SHARP}
+# a tensor-core kernel timed in turns against the CUDA-core design it replaced
+TIMING_TURNS = {"bfloat16": ("sm90", "cuda_core", "cuda_core", "sm90"),
+                "float32": ("sm90_f32", "cuda_core", "cuda_core", "sm90_f32")}
 # K = 8 slice, f32 frames with the kernel vs with the plain attention: the
 # attention outputs differ by <= 5e-4 (above); through the decoder: 2e-3
 SLICE_FRAME_TOL = 2e-3
@@ -97,18 +112,23 @@ def phase_device(torch):
 
 
 def phase_build():
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; ptxas's register and spill
+    counts per kernel instantiation."""
+    import re
     from fsvid2vid_tpu_torch.ops import attention_kernel as ak
     from fsvid2vid_tpu_torch.ops import cost_volume as cv
     t0 = time.perf_counter()
     pending = [(lib, lib.start_build(verbose=True))
-               for lib in (ak.KERNEL_SM90, ak.KERNEL, cv.KERNEL)]
+               for lib in (ak.KERNEL_SM90, ak.KERNEL, cv.KERNEL_TC, cv.KERNEL)]
     for lib, finish in pending:
         seconds, log = finish()
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "setmaxnreg" in ln]
+        registers = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
         emit({"phase": "build", "kernel": lib.name,
               "source": str(lib.source.relative_to(REPO)), "seconds": seconds,
+              "registers": registers, "spill_store_bytes": spills,
               "ptxas": ptxas[:12], "ptxas_lines": len(ptxas)})
     emit({"phase": "build", "all_seconds": time.perf_counter() - t0})
 
@@ -140,13 +160,16 @@ def attention_inputs(torch, b, hw, n_refs, c, has_lf, dtype, seed=0, sharpness=1
 
 def attention_cost(b, hw, n_refs, c, has_lf, dtype_bytes):
     """FLOP and bytes of one call: QK^T plus one PV product per value
-    tensor; each input read once, each output written once."""
+    tensor; each input read once, each output written once.  Also the FLOP
+    of the f32 tensor-core kernel's split products: 6 bf16 products for
+    QK^T and 3 per value tensor."""
     n = n_refs * hw
     n_values = 2 if has_lf else 1
-    flops = 2.0 * b * hw * n * c * (1 + n_values)
+    unit = 2.0 * b * hw * n * c
+    flops = unit * (1 + n_values)
     nbytes = (dtype_bytes * (b * hw * c * (1 + n_values) + b * n * c * (1 + n_values))
               + 4 * b * hw * n_refs)
-    return flops, nbytes
+    return flops, nbytes, unit * (6 + 3 * n_values)
 
 
 def library_attention(torch, q, k, xf, lf, n_refs):
@@ -163,11 +186,12 @@ def library_attention(torch, q, k, xf, lf, n_refs):
                                                   v[:, None], scale=1.0)
 
 
-def check_kernel(torch, dtype_name, case, shape, timed):
+def check_kernel(torch, dtype_name, case, timed):
     """The routed kernel against the plain version on one seeded input; the
     route follows from the dtype and c (ops/attention_kernel.py route_for)."""
     from fsvid2vid_tpu_torch.ops import attention_kernel as ak
     dtype = getattr(torch, dtype_name)
+    shape = ATTENTION_CASES[case]
     n_refs = shape["n_refs"]
     route = ak.route_for("cuda", dtype, shape["c"])
     q, k, xf, lf = attention_inputs(torch, dtype=dtype,
@@ -195,19 +219,18 @@ def check_kernel(torch, dtype_name, case, shape, timed):
            "sharpness": SHARPNESS.get(case, 1.0),
            "max_abs_err_out": err_out, "tol_out": tol_out,
            "max_abs_err_vis": err_vis, "tol_vis": tol_vis, "ok": ok}
-    if timed and ok:
-        if route == "sm90":   # in turns against the CUDA-core design it replaced
-            launch = {"sm90": ak._launch_sm90, "cuda_core": ak._launch_cuda_core}
-            turns = [(r, cuda_ms(torch, lambda r=r: launch[r](q, k, xf, lf, n_refs), 5))
-                     for r in TIMING_TURNS]
-            res["turns_ms"] = turns
-            res["sm_clock_power_temperature"] = subprocess.run(
-                ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
-                 "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-            res["ms"] = sum(ms for r, ms in turns if r == "sm90") / 2
-            res["previous_design_ms"] = sum(ms for r, ms in turns if r == "cuda_core") / 2
-        else:
-            res["ms"] = cuda_ms(torch, lambda: ak.flash_ref_attention(q, k, xf, lf, n_refs), 5)
+    if timed and ok:   # in turns against the CUDA-core design it replaced
+        launch = {"sm90": ak._launch_sm90, "sm90_f32": ak._launch_sm90_f32,
+                  "cuda_core": ak._launch_cuda_core}
+        turns = [(r, cuda_ms(torch, lambda r=r: launch[r](q, k, xf, lf, n_refs), 5))
+                 for r in TIMING_TURNS[dtype_name]]
+        mean = lambda name: sum(ms for r, ms in turns if r == name) / 2
+        res["turns_ms"] = turns
+        res["sm_clock_power_temperature"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+        res["ms"] = mean(route)
+        res["previous_design_ms"] = mean("cuda_core")
         res["plain_ms"] = cuda_ms(
             torch, lambda: ak.flash_ref_attention_plain(q, k, xf, lf, n_refs), 2)
         lib = library_attention(torch, q, k, xf, lf, n_refs)
@@ -216,13 +239,18 @@ def check_kernel(torch, dtype_name, case, shape, timed):
                                           - pvis).abs().max().item()
         del out
         res["library_ms"] = cuda_ms(torch, lib, 5)
-        flops, nbytes = attention_cost(shape["b"], shape["hw"], n_refs,
-                                       shape["c"], shape["has_lf"], q.element_size())
-        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-        res.update(flop=flops, bytes=nbytes,
-                   bound_ms=1e3 * max(flops / peak, nbytes / H100_BYTES_PER_S),
-                   bound_by=("operations" if flops / peak >= nbytes / H100_BYTES_PER_S
-                             else "bytes"))
+        flops, nbytes, split_flops = attention_cost(
+            shape["b"], shape["hw"], n_refs, shape["c"], shape["has_lf"], q.element_size())
+        # the bound of the operations the kernel does, at the peak for their
+        # type: bf16 products (the f32 kernel's are its split products); for
+        # f32 also the useful f32 work at the CUDA cores' f32 peak
+        ops_ms = 1e3 * (split_flops if route == "sm90_f32" else flops) / H100_BF16_FLOPS
+        bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
+        res.update(flop=flops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
+                   bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        if route == "sm90_f32":
+            res.update(split_flop=split_flops,
+                       f32_cuda_core_bound_ms=1e3 * flops / H100_F32_FLOPS)
         res["bound_share"] = res["bound_ms"] / res["ms"]
         res["tflops"] = flops / res["ms"] / 1e9
     emit(res)
@@ -233,42 +261,65 @@ def check_kernel(torch, dtype_name, case, shape, timed):
 
 
 def phase_kernels(torch):
-    slice_res = {d: check_kernel(torch, d, "slice", SLICE, True)
-                 for d in ("bfloat16", "float32")}
-    for d in ("bfloat16", "float32"):
-        check_kernel(torch, d, "ragged", RAGGED, False)
-    for case, shape in (("short_refs", SHORT_REFS), ("sharp", SHARP)):
-        check_kernel(torch, "bfloat16", case, shape, False)
+    """Every case in both dtypes; the slice timed.  The c = 36 case keeps the
+    CUDA-core kernel launched and checked."""
+    res = {(case, d): check_kernel(torch, d, case, case == "slice")
+           for case in ATTENTION_CASES for d in ("bfloat16", "float32")}
+    if {r["route"] for (case, _), r in res.items() if case == "ragged_c36"} != {"cuda_core"}:
+        raise AssertionError("the c = 36 cases did not take the CUDA-core route")
     torch.cuda.empty_cache()
-    return slice_res
+    return res
 
 
 # ----------------------------------------------------------------------
 # the cost-volume kernel
 # ----------------------------------------------------------------------
 # (B, C, H, W, max_displacement, stride): the teacher's call on a 3-frame
-# sequence of batch 4 at 256 px; the same net at 512 px; a ragged shape
+# sequence of batch 4 at 256 px; the same net at 512 px; a ragged shape; a
+# stride-1 grid, which only the CUDA-core kernel takes
 CV_SHAPES = {"slice": (12, 256, 32, 32, 20, 2), "px512": (4, 256, 64, 64, 20, 2),
-             "ragged": (2, 40, 13, 19, 4, 2)}
+             "ragged": (2, 40, 13, 19, 4, 2), "stride1": (2, 40, 13, 19, 4, 1)}
 # kernel vs plain version, max abs error.  Both sum <= 256 f32 products of
 # N(0, 1) inputs and divide by C, so |out| < 1:
 #  f32: the same products summed in another order: 2e-6;
 #  bf16: both round an f32 result below 1 to bf16 (ulp 2^-8 below 1, and the
 #    two f32 sums may fall on either side of a rounding boundary): 4e-3.
 CV_TOL = {"float32": 2e-6, "bfloat16": 4e-3}
+# the tensor-core kernel timed in turns against the CUDA-core design
+CV_TIMING_TURNS = ("tc", "cuda_core", "cuda_core", "tc")
+
+
+def cv_tc_flops(b, c, h, w, md, split):
+    """FLOP of the tc kernel's own tf32 products (csrc/cost_volume_tc.cu):
+    per output row, each vertical shift whose row lies in the map, each
+    32-pixel chunk and each parity, a 16 x 8 NT product over C padded to 32;
+    three times over for f32 inputs (3xTF32)."""
+    d = 2 * (md // 2) + 1
+    r = d - 1
+    shifts = sum(sum(0 <= y - r + 2 * i < h for i in range(d)) for y in range(h))
+    n_tiles = (15 + d + 7) // 8
+    per = 2 * 16 * 8 * n_tiles * (-(-c // 32) * 32) * 2 * -(-w // 32)
+    return float(b * shifts * per * (3 if split else 1))
 
 
 def check_cost_volume(torch, dtype_name, case):
-    from fsvid2vid_tpu_torch.ops.cost_volume import (
-        correlation, cost_volume_cuda, cost_volume_plain)
+    """The routed kernel against the plain version; on the tc route the
+    CUDA-core kernel too, both timed in turns."""
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
     b, c, h, w, md, stride = CV_SHAPES[case]
     dtype = getattr(torch, dtype_name)
+    route = cv.route_for("cuda", md, stride)
     g = torch.Generator(device="cuda").manual_seed(7)
     f1 = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype)
     f2 = torch.randn(b, c, h, w, device="cuda", generator=g).to(dtype)
-    out = correlation(f1, f2, md, stride)
+    before = dict(cv.cost_volume_cuda.launches_by_route)
+    out = cv.correlation(f1, f2, md, stride)
     torch.cuda.synchronize()
-    ref = cost_volume_plain(f1, f2, md, stride)
+    moved = {r: n - before[r] for r, n in cv.cost_volume_cuda.launches_by_route.items()}
+    if moved != {r: int(r == route) for r in moved}:
+        raise AssertionError(f"cost_volume {case} {dtype_name}: launches by route "
+                             f"{moved}, expected one on {route}")
+    ref = cv.cost_volume_plain(f1, f2, md, stride)
     d = 2 * (md // stride) + 1
     if out.shape != (b, d * d, h, w) or out.dtype != dtype:
         raise AssertionError(f"cost volume output {tuple(out.shape)} {out.dtype}")
@@ -278,17 +329,44 @@ def check_cost_volume(torch, dtype_name, case):
     tol = CV_TOL[dtype_name]
     flops = 2.0 * b * h * w * d * d * c
     nbytes = (2.0 * b * c * h * w + d * d * b * h * w) * f1.element_size()
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    res = {"phase": "kernel_check", "kernel": "cost_volume", "case": case,
+    # the useful products at the peak of the arithmetic that keeps the
+    # dtype's accuracy: bf16 products for bf16; for f32 on the tensor cores
+    # three tf32 products per useful one (3xTF32; six split-bf16 products at
+    # the bf16 peak take as long), on the CUDA cores f32 FMAs
+    if dtype == torch.bfloat16:
+        ops_s = flops / H100_BF16_FLOPS
+    elif route == "tc":
+        ops_s = 3 * flops / H100_TF32_FLOPS
+    else:
+        ops_s = flops / H100_F32_FLOPS
+    res = {"phase": "kernel_check", "kernel": "cost_volume", "route": route, "case": case,
            "dtype": dtype_name, "shape": CV_SHAPES[case], "max_abs_err": err,
            "tol": tol, "ok": err <= tol, "out_abs_max": ref.float().abs().max().item(),
-           "ms": cuda_ms(torch, lambda: cost_volume_cuda(f1, f2, md, stride), 20),
-           "plain_ms": cuda_ms(torch, lambda: cost_volume_plain(f1, f2, md, stride), 3),
+           "plain_ms": cuda_ms(torch, lambda: cv.cost_volume_plain(f1, f2, md, stride), 3),
            "flop": flops, "bytes": nbytes,
-           "bound_ms": 1e3 * max(flops / peak, nbytes / H100_BYTES_PER_S),
-           "bound_by": ("operations" if flops / peak >= nbytes / H100_BYTES_PER_S
-                        else "bytes"),
+           "bound_ms": 1e3 * max(ops_s, nbytes / H100_BYTES_PER_S),
+           "bound_by": "operations" if ops_s >= nbytes / H100_BYTES_PER_S else "bytes",
            "library_ms": None}   # no single PyTorch call computes this function
+    if dtype == torch.float32:
+        res["f32_cuda_core_bound_ms"] = 1e3 * max(flops / H100_F32_FLOPS,
+                                                  nbytes / H100_BYTES_PER_S)
+    if route == "tc":
+        old = cv._launch_cuda_core(f1, f2, md, stride)
+        res["cuda_core_max_abs_err"] = (old.float() - ref.float()).abs().max().item()
+        res["ok"] = res["ok"] and res["cuda_core_max_abs_err"] <= tol
+        del old
+        launch = {"tc": cv._launch_tc, "cuda_core": cv._launch_cuda_core}
+        turns = [(r, cuda_ms(torch, lambda r=r: launch[r](f1, f2, md, stride), 20))
+                 for r in CV_TIMING_TURNS]
+        res["turns_ms"] = turns
+        res["ms"] = sum(ms for r, ms in turns if r == "tc") / 2
+        res["previous_design_ms"] = sum(ms for r, ms in turns if r == "cuda_core") / 2
+        tc_flops = cv_tc_flops(b, c, h, w, md, dtype == torch.float32)
+        res.update(tc_flop=tc_flops, design_bound_ms=1e3 * tc_flops / H100_TF32_FLOPS)
+        res["design_bound_share"] = res["design_bound_ms"] / res["ms"]
+    else:
+        res["ms"] = cuda_ms(torch, lambda: cv.cost_volume_cuda(f1, f2, md, stride), 20)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
     emit(res)
     if not res["ok"]:
         raise AssertionError(f"cost_volume {case} {dtype_name}: error {err} above {tol}")
@@ -298,6 +376,8 @@ def check_cost_volume(torch, dtype_name, case):
 def phase_cost_volume(torch):
     res = {(case, d): check_cost_volume(torch, d, case)
            for case in CV_SHAPES for d in ("float32", "bfloat16")}
+    if res["stride1", "float32"]["route"] != "cuda_core":
+        raise AssertionError("the stride-1 grid did not take the CUDA-core route")
     torch.cuda.empty_cache()
     return res
 
@@ -363,14 +443,15 @@ def run_frames(torch, pipe, labels, ref_labels, ref_images):
     return frames, ms, reset_ms, ref_idx
 
 
-def profile_step(torch, pipe, label):
-    return profile_call(torch, lambda: pipe.step(label))
+def profile_step(torch, pipe, label, find=None):
+    return profile_call(torch, lambda: pipe.step(label), find)
 
 
-def profile_call(torch, fn):
+def profile_call(torch, fn, find=None):
     """Device time of one warm call of `fn` by kernel (torch.profiler's
     CUDA kernel records; CUPTI's own buffer records left out): the 10
-    largest, their sum, and the call's host-clock ms."""
+    largest, their sum, the call's host-clock ms, and with `find` the ms and
+    launches of the kernels whose name holds that string."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cupti_records = {"Activity Buffer Request", "Buffer Flush", "Command Buffer Full"}
@@ -388,10 +469,15 @@ def profile_call(torch, fn):
             by_kernel[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     rows = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
     device_ms = sum(ms for ms, _ in by_kernel.values())
-    return {"step_ms": step_ms, "device_ms": device_ms,
-            "device_busy_share": device_ms / step_ms, "kernel_launches":
-            sum(n for _, n in by_kernel.values()),
-            "top": [{"kernel": k[:90], "ms": ms, "calls": n} for k, (ms, n) in rows[:10]]}
+    res = {"step_ms": step_ms, "device_ms": device_ms,
+           "device_busy_share": device_ms / step_ms, "kernel_launches":
+           sum(n for _, n in by_kernel.values()),
+           "top": [{"kernel": k[:90], "ms": ms, "calls": n} for k, (ms, n) in rows[:10]]}
+    if find is not None:
+        found = [(ms, n) for k, (ms, n) in by_kernel.items() if find in k]
+        res.update(found=find, found_ms=sum(ms for ms, _ in found),
+                   found_launches=sum(n for _, n in found))
+    return res
 
 
 def phase_slice(torch):
@@ -426,21 +512,21 @@ def phase_slice(torch):
                       "frame_std": frames.std().item()}
     if launches != 4 * N_FRAMES:
         raise AssertionError(f"kernel launches {launches} != frames {4 * N_FRAMES}")
-    # bf16 frames on the tensor-core route only, f32 frames on the CUDA cores
-    want = {"bfloat16": {"sm90": 2 * N_FRAMES, "cuda_core": 0},
-            "float32": {"sm90": 0, "cuda_core": 2 * N_FRAMES}}
+    # each dtype's frames on its own tensor-core route only
+    want = {"bfloat16": {"sm90": 2 * N_FRAMES, "sm90_f32": 0, "cuda_core": 0},
+            "float32": {"sm90": 0, "sm90_f32": 2 * N_FRAMES, "cuda_core": 0}}
     if by_dtype != want:
         raise AssertionError(f"launches by dtype and route {by_dtype} != {want}")
     for dtype in ("bfloat16", "float32"):   # one warm frame with warp_prev
         pipe = InferencePipeline(cfg, g, compute_dtype=dtype)
         pipe.reset(ref_labels, ref_images, labels[0])
         pipe.step(labels[0])
-        res[f"profile_{dtype}"] = profile_step(torch, pipe, labels[1])
-    sm90_rows = [r for r in res["profile_bfloat16"]["top"]
-                 if "flash_ref_attention_sm90" in r["kernel"]]
-    if not sm90_rows:
-        raise AssertionError("the bf16 frame's profile shows no sm90 attention kernel")
-    res["profile_bfloat16"]["attention_ms"] = sm90_rows[0]["ms"]
+        name = {"bfloat16": "flash_ref_attention_sm90_kernel<__nv_bfloat16",
+                "float32": "flash_ref_attention_sm90_kernel<float"}[dtype]
+        prof = res[f"profile_{dtype}"] = profile_step(torch, pipe, labels[1], find=name)
+        if prof["found_launches"] != 1:
+            raise AssertionError(f"the {dtype} frame's profile shows "
+                                 f"{prof['found_launches']} launches of {name}, not 1")
 
     # the same f32 pipeline with the plain attention, on the card
     g.attention = ak.flash_ref_attention_plain
@@ -617,6 +703,8 @@ def phase_train(torch):
               for n, m in (("G", models.netG), ("D", models.netD))}
     torch.cuda.reset_peak_memory_stats()
     cv.cost_volume_cuda.launches = 0
+    for route in cv.cost_volume_cuda.launches_by_route:
+        cv.cost_volume_cuda.launches_by_route[route] = 0
     log, flow_calls = [], 0
     e_single, e_temporal = 1, cfg.niter_single + 1
     for step_fn in (train_step, train_step_faithful):
@@ -630,8 +718,9 @@ def phase_train(torch):
         flow_calls += run_train_sequence(torch, cfg, state, teacher, train_step, seq,
                                          e_single, "float32", log)
     launches = cv.cost_volume_cuda.launches
+    by_route = dict(cv.cost_volume_cuda.launches_by_route)
     res.update(sequences=log, steps=state.step, flow_calls=flow_calls,
-               cost_volume_launches=launches)
+               cost_volume_launches=launches, cost_volume_launches_by_route=by_route)
     moved = {}
     for n, m in (("G", models.netG), ("D", models.netD)):
         params = list(m.parameters())
@@ -643,6 +732,9 @@ def phase_train(torch):
     emit(res)
     if launches != flow_calls or launches == 0:
         raise AssertionError(f"cost volume launches {launches} != flow calls {flow_calls}")
+    if by_route != {"tc": flow_calls, "cuda_core": 0}:
+        raise AssertionError(f"cost volume launches by route {by_route}: expected every "
+                             "teacher call on the tensor-core route")
     if moved["G"] < 0.9 * moved["G_of"] or moved["D"] < 0.9 * moved["D_of"]:
         raise AssertionError(f"parameters did not move: {moved}")
     del models, teacher, state, before
@@ -703,31 +795,52 @@ def main() -> int:
     phase_k1(torch)
     train_res = phase_train(torch)
     phase_small_train(torch)
-    bf, f32 = kern["bfloat16"], kern["float32"]
+    bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
+    c36 = kern["ragged_c36", "float32"]
     routes = slice_res["launches_by_route"]
-    cv_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_design_ms",
+            "bound_share")
+    b1 = {"route": "cuda", "replaces": "fsvid2vid_tpu/ops/pallas/attention_kernel.py:158",
+          "shape": SLICE, "card": smi}
+    # the CUDA-core design both tensor-core routes replaced at the slice: its
+    # f32 FMAs bound at the f32 peak; on the main path no more, checked at c = 36
+    b1_cuda_core = {
+        "name": "flash_ref_attention_cuda_core", **b1,
+        "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention.cu",
+        "launches": routes["cuda_core"], "checked_on": "ragged_c36",
+        "max_abs_err": c36["max_abs_err_out"], "ms": f32["previous_design_ms"],
+        "plain_ms": f32["plain_ms"], "bound_ms": f32["f32_cuda_core_bound_ms"],
+        "bound_by": "operations", "library_ms": f32["library_ms"], "dtype": "float32"}
     cv_main = cv_res["slice", "float32"]   # the teacher runs in f32
+    cv_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    b2 = {"route": "cuda", "replaces": "fsvid2vid_tpu/ops/pallas/cost_volume_kernel.py:71",
+          "dtype": "float32", "shape": CV_SHAPES["slice"], "card": smi}
+    b2_cuda_core = {
+        "name": "cost_volume_cuda_core", **b2, "source": "fsvid2vid_tpu_torch/csrc/cost_volume.cu",
+        "launches": train_res["cost_volume_launches_by_route"]["cuda_core"],
+        "checked_on": "stride1", "max_abs_err": cv_res["stride1", "float32"]["max_abs_err"],
+        "ms": cv_main["previous_design_ms"], "plain_ms": cv_main["plain_ms"],
+        "bound_ms": cv_main["f32_cuda_core_bound_ms"], "bound_by": "operations",
+        "library_ms": None}
     emit({"kernels": [{
-        "name": "flash_ref_attention", "route": "cuda",
+        "name": "flash_ref_attention_sm90", **b1,
         "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
-        "replaces": "fsvid2vid_tpu/ops/pallas/attention_kernel.py:158",
-        "launches": routes["sm90"],
-        "max_abs_err": bf["max_abs_err_out"], "ms": bf["ms"],
-        "plain_ms": bf["plain_ms"], "bound_ms": bf["bound_ms"],
-        "bound_by": bf["bound_by"], "library_ms": bf["library_ms"],
-        "previous_design_ms": bf["previous_design_ms"], "bound_share": bf["bound_share"],
-        "dtype": "bfloat16", "shape": SLICE, "card": smi,
-        "f32": {"source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention.cu",
-                "launches": routes["cuda_core"],
-                **{k: f32[k] for k in ("max_abs_err_out", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}}}, {
-        "name": "cost_volume", "route": "cuda",
-        "source": "fsvid2vid_tpu_torch/csrc/cost_volume.cu",
-        "replaces": "fsvid2vid_tpu/ops/pallas/cost_volume_kernel.py:71",
-        "launches": train_res["cost_volume_launches"],
+        "launches": routes["sm90"], "max_abs_err": bf["max_abs_err_out"],
+        **{k: bf[k] for k in keys}, "dtype": "bfloat16"}, {
+        "name": "flash_ref_attention_sm90_f32", **b1,
+        "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
+        "launches": routes["sm90_f32"], "max_abs_err": f32["max_abs_err_out"],
+        **{k: f32[k] for k in keys}, "dtype": "float32",
+        "f32_cuda_core_bound_ms": f32["f32_cuda_core_bound_ms"],
+        "previous_design": b1_cuda_core}, {
+        "name": "cost_volume_tc", **b2, "source": "fsvid2vid_tpu_torch/csrc/cost_volume_tc.cu",
+        "launches": train_res["cost_volume_launches_by_route"]["tc"],
         **{k: cv_main[k] for k in cv_keys},
-        "dtype": "float32", "shape": CV_SHAPES["slice"], "card": smi,
-        "other": {f"{case}_{d}": {k: r[k] for k in cv_keys}
+        **{k: cv_main[k] for k in ("previous_design_ms", "bound_share", "design_bound_ms",
+                                   "design_bound_share", "f32_cuda_core_bound_ms")},
+        "previous_design": b2_cuda_core,
+        "other": {f"{case}_{d}": {k: r.get(k) for k in cv_keys + ("route", "previous_design_ms",
+                                                                   "design_bound_ms")}
                   for (case, d), r in cv_res.items() if (case, d) != ("slice", "float32")}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -8,13 +8,16 @@ With N = n_refs * hw_key keys:
   out_l[b,q,:] = the same weights applied to lf (optional)
   vis[b,q,r]   = the softmax mass on the keys of reference r
 
-Two hand-written kernels compute it on the card; `route_for` picks one from
-where the inputs lie, their dtype and their channel count, before any launch:
+Three hand-written kernels compute it on the card; `route_for` picks one
+from where the inputs lie, their dtype and their channel count, before any
+launch:
 
   CPU tensor                          -> the plain version
   CUDA, bf16, c % 8 == 0, c <= 128    -> "sm90": csrc/flash_ref_attention_sm90.cu
                                          (wgmma, TMA, warp specialisation)
-  CUDA, f32, or bf16 with c % 8 != 0  -> "cuda_core": csrc/flash_ref_attention.cu
+  CUDA, f32, c % 8 == 0, c <= 128     -> "sm90_f32": the same source's f32
+                                         instance (split-bf16 products)
+  CUDA, c % 8 != 0                    -> "cuda_core": csrc/flash_ref_attention.cu
 
 Each is built with nvcc for sm_90a on first use into fsvid2vid_tpu_torch/build/
 and loaded with ctypes (ops/cuda_build.py).  A CUDA call launches the routed
@@ -32,8 +35,8 @@ from fsvid2vid_tpu_torch.ops.cuda_build import CudaLibrary
 MAX_C = 128            # channels the kernels take (csrc MAX_C)
 SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
 
-# the sm90 kernel's shared memory (csrc/flash_ref_attention_sm90.cu
-# smem_bytes): 1024 bytes of alignment slack, a 128-query tile and 3 stages
+# the bf16 sm90 kernel's shared memory (csrc/flash_ref_attention_sm90.cu
+# smem_bytes<bf16>): 1024 bytes of alignment slack, a 128-query tile and 3 stages
 # of 64-key tiles [K | xf | lf] in 64-channel boxes, 7 mbarriers, and a
 # (128, n_refs) table of float2
 _SM90_STAGES = 3
@@ -44,6 +47,19 @@ def sm90_smem_bytes(c: int, n_refs: int, has_lf: bool) -> int:
     stage = boxes * 64 * 128 * (3 if has_lf else 2)
     return (1024 + boxes * 128 * 128 + _SM90_STAGES * stage + 8 * (2 * _SM90_STAGES + 1)
             + 128 * n_refs * 8)
+
+
+# the f32 one's (smem_bytes<float>): the 128-query tile in 3 bf16 parts, 2
+# stages of 32-key tiles [K in 3 parts | xf and lf in 2 parts], 5 mbarriers
+# and the same table
+_SM90_F32_STAGES = 2
+
+
+def sm90_f32_smem_bytes(c: int, n_refs: int, has_lf: bool) -> int:
+    boxes = 1 if c <= 64 else 2
+    stage = (3 * boxes + 2 * boxes * (2 if has_lf else 1)) * 32 * 128
+    return (1024 + 3 * boxes * 128 * 128 + _SM90_F32_STAGES * stage
+            + 8 * (2 * _SM90_F32_STAGES + 1) + 128 * n_refs * 8)
 
 
 def _declare(lib):
@@ -60,20 +76,26 @@ def _declare_sm90(lib):
     fn = lib.fsv_flash_ref_attention_sm90
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.fsv_flash_ref_attention_sm90_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    scratch = lib.fsv_flash_ref_attention_sm90_f32_scratch_bytes
+    scratch.argtypes = [ctypes.c_int] * 6
+    scratch.restype = ctypes.c_size_t
 
 
 KERNEL = CudaLibrary("flash_ref_attention", _declare)
-KERNEL_SM90 = CudaLibrary("flash_ref_attention_sm90", _declare_sm90)
+KERNEL_SM90 = CudaLibrary("flash_ref_attention_sm90", _declare_sm90)   # both sm90 routes
 
 
 def route_for(device_type: str, dtype: torch.dtype, c: int) -> str:
-    """The rule: "plain", "sm90" or "cuda_core" for inputs on `device_type`
-    of `dtype` with `c` channels.  f32 stays on the CUDA cores: TF32 tensor
-    cores would not hold the f32 checks."""
+    """The rule: "plain", "sm90", "sm90_f32" or "cuda_core" for inputs on
+    `device_type` of `dtype` with `c` channels.  f32 reaches the tensor cores
+    only as split-bf16 products (TF32 alone would not hold the f32 checks)."""
     if device_type == "cpu":
         return "plain"
-    if dtype == torch.bfloat16 and c % 8 == 0 and c <= MAX_C:
-        return "sm90"
+    if c % 8 == 0 and c <= MAX_C:
+        return "sm90" if dtype == torch.bfloat16 else "sm90_f32"
     return "cuda_core"
 
 
@@ -133,21 +155,31 @@ def _check(query, key, xf, lf, n_refs):
                          "(the kernel stages c channels in shared memory)")
 
 
-def _check_sm90(query, key, xf, lf, n_refs):
-    """What the sm90 kernel needs beyond _check: bf16, c % 8 == 0 (TMA rows
-    are 16-byte strided), 16-byte aligned tensors, and its shared memory."""
+def _check_tensor_core(route, dtype, smem_bytes, query, key, xf, lf, n_refs):
+    """What a tensor-core kernel needs beyond _check: its dtype, c % 8 == 0
+    (TMA rows are 16-byte strided), 16-byte aligned tensors, and its shared
+    memory."""
     _check(query, key, xf, lf, n_refs)
     c = query.shape[2]
-    if query.dtype != torch.bfloat16 or c % 8:
-        raise ValueError(f"flash_ref_attention sm90: needs bfloat16 and c % 8 == 0, "
+    if query.dtype != dtype or c % 8:
+        raise ValueError(f"flash_ref_attention {route}: needs {dtype} and c % 8 == 0, "
                          f"got {query.dtype} and c={c}")
     tensors = [query, key, xf] + ([lf] if lf is not None else [])
     if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("flash_ref_attention sm90: tensors must be 16-byte aligned")
-    smem = sm90_smem_bytes(c, n_refs, lf is not None)
+        raise ValueError(f"flash_ref_attention {route}: tensors must be 16-byte aligned")
+    smem = smem_bytes(c, n_refs, lf is not None)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"flash_ref_attention sm90: n_refs={n_refs} needs {smem} "
+        raise ValueError(f"flash_ref_attention {route}: n_refs={n_refs} needs {smem} "
                          f"bytes of shared memory (limit {SMEM_LIMIT})")
+
+
+def _check_sm90(query, key, xf, lf, n_refs):
+    _check_tensor_core("sm90", torch.bfloat16, sm90_smem_bytes, query, key, xf, lf, n_refs)
+
+
+def _check_sm90_f32(query, key, xf, lf, n_refs):
+    _check_tensor_core("sm90_f32", torch.float32, sm90_f32_smem_bytes, query, key, xf, lf,
+                       n_refs)
 
 
 def _outputs(query, lf, n_refs):
@@ -188,8 +220,32 @@ def _launch_sm90(query, key, xf, lf, n_refs):
     return out_x, out_l, vis
 
 
+def _launch_sm90_f32(query, key, xf, lf, n_refs):
+    """The f32 tensor-core kernel; its split pre-pass writes the bf16 parts
+    of the inputs into a scratch tensor allocated here."""
+    _check_sm90_f32(query, key, xf, lf, n_refs)
+    lib = KERNEL_SM90.load()
+    b, hw, c = query.shape
+    n = key.shape[1]
+    has_lf = lf is not None
+    scratch = torch.empty(
+        lib.fsv_flash_ref_attention_sm90_f32_scratch_bytes(b, hw, n, c, n_refs, int(has_lf)),
+        dtype=torch.uint8, device=query.device)
+    out_x, out_l, vis = _outputs(query, lf, n_refs)
+    with torch.cuda.device(query.device):
+        err = lib.fsv_flash_ref_attention_sm90_f32(
+            query.data_ptr(), key.data_ptr(), xf.data_ptr(),
+            lf.data_ptr() if has_lf else None, scratch.data_ptr(),
+            out_x.data_ptr(), out_l.data_ptr() if has_lf else None,
+            vis.data_ptr(), b, hw, n, c, n_refs,
+            torch.cuda.current_stream(query.device).cuda_stream)
+    _raise_on(err, "sm90_f32")
+    _count("sm90_f32")
+    return out_x, out_l, vis
+
+
 def _launch_cuda_core(query, key, xf, lf, n_refs):
-    """The CUDA-core kernel: the f32 route, and bf16 with c % 8 != 0."""
+    """The CUDA-core kernel: f32 and bf16 with c % 8 != 0."""
     _check(query, key, xf, lf, n_refs)
     lib = KERNEL.load()
     b, hw, c = query.shape
@@ -224,10 +280,12 @@ def flash_ref_attention(query, key, xf, lf, n_refs: int):
     route = route_for(query.device.type, query.dtype, query.shape[-1])
     if route == "plain":
         return flash_ref_attention_plain(query, key, xf, lf, n_refs)
-    launch = _launch_sm90 if route == "sm90" else _launch_cuda_core
-    return launch(query, key, xf, lf, n_refs)
+    return _LAUNCH[route](query, key, xf, lf, n_refs)
 
 
-# launches of either kernel, and by route
+_LAUNCH = {"sm90": _launch_sm90, "sm90_f32": _launch_sm90_f32,
+           "cuda_core": _launch_cuda_core}
+
+# launches of any kernel, and by route
 flash_ref_attention.launches = 0
-flash_ref_attention.launches_by_route = {"sm90": 0, "cuda_core": 0}
+flash_ref_attention.launches_by_route = {route: 0 for route in _LAUNCH}

@@ -13,12 +13,20 @@ d = max_displacement // stride, D = 2 d + 1 and dy, dx in
 layer).  f1, f2: (B, C, H, W) -> (B, D * D, H, W); the JAX functions are the
 same with channels last.
 
-The kernel (csrc/cost_volume.cu) is built with nvcc for sm_90a on first use
-and loaded with ctypes (ops/cuda_build.py).  `cost_volume_cuda` launches the
-kernel or raises; `correlation` runs the plain version only for CPU
-tensors.  The backward is plain PyTorch on every device, as the JAX
-package's VJP is a plain XLA shift-and-reduce: the flow teacher is frozen
-and no training path differentiates through it.
+Two hand-written kernels compute it on the card; `route_for` picks one from
+the shape alone, before any launch:
+
+  CPU tensor               -> the plain version
+  CUDA, stride 2, D <= 25  -> "tc": csrc/cost_volume_tc.cu (banded tensor-core
+                              product; any C and map size)
+  CUDA, any other grid     -> "cuda_core": csrc/cost_volume.cu
+
+Each is built with nvcc for sm_90a on first use and loaded with ctypes
+(ops/cuda_build.py).  `cost_volume_cuda` launches the routed kernel or
+raises, with no fallback to the other kernel; `correlation` runs the plain
+version only for CPU tensors.  The backward is plain PyTorch on every
+device, as the JAX package's VJP is a plain XLA shift-and-reduce: the flow
+teacher is frozen and no training path differentiates through it.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch.nn.functional as F
 from fsvid2vid_tpu_torch.ops.cuda_build import CudaLibrary
 
 SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
+TC_MAX_D = 25          # the tc kernel's widest displacement grid (csrc MAX_D)
 
 
 def _declare(lib):
@@ -42,7 +51,26 @@ def _declare(lib):
     lib.fsv_cost_volume_max_d.restype = ctypes.c_int
 
 
+def _declare_tc(lib):
+    fn = lib.fsv_cost_volume_tc
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.fsv_cost_volume_tc_scratch_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fsv_cost_volume_tc_scratch_bytes.restype = ctypes.c_size_t
+
+
 KERNEL = CudaLibrary("cost_volume", _declare)
+KERNEL_TC = CudaLibrary("cost_volume_tc", _declare_tc)
+
+
+def route_for(device_type: str, max_displacement: int, stride: int) -> str:
+    """The rule: "plain", "tc" or "cuda_core" for inputs on `device_type`
+    and this displacement grid."""
+    if device_type == "cpu":
+        return "plain"
+    if stride == 2 and 2 * (max_displacement // stride) + 1 <= TC_MAX_D:
+        return "tc"
+    return "cuda_core"
 
 
 def displacements(max_displacement: int, stride: int):
@@ -81,15 +109,54 @@ def cost_volume_plain(f1: torch.Tensor, f2: torch.Tensor,
     return (torch.stack(outs, 1) * (1.0 / c)).to(f1.dtype)
 
 
-def cost_volume_cuda(f1: torch.Tensor, f2: torch.Tensor,
-                     max_displacement: int = 20, stride: int = 2) -> torch.Tensor:
-    """The kernel on CUDA tensors (forward only).  Raises on anything the
-    kernel does not take and on a failed build or launch."""
+def _check_cuda(f1, f2, max_displacement, stride):
     _check_args(f1, f2, max_displacement, stride)
     if f1.device.type != "cuda":
         raise ValueError(f"cost_volume_cuda: device {f1.device} is not CUDA")
     if not (f1.is_contiguous() and f2.is_contiguous()):
         raise ValueError("cost_volume_cuda: inputs must be contiguous")
+    b, _, h, _ = f1.shape
+    if h > 65535 or b > 65535:
+        raise ValueError("cost_volume_cuda: B and H must be at most 65535")
+
+
+def _raise_on(err, route):
+    if err != 0:
+        raise RuntimeError(f"cost_volume_cuda ({route}): kernel launch failed with "
+                           f"CUDA error {err}")
+
+
+def _count(route):
+    cost_volume_cuda.launches += 1
+    cost_volume_cuda.launches_by_route[route] += 1
+
+
+def _launch_tc(f1, f2, max_displacement, stride):
+    """The tensor-core kernel: stride 2, D <= 25.  Its pre-pass writes f1 and
+    f2 channels-last into a scratch tensor allocated here."""
+    _check_cuda(f1, f2, max_displacement, stride)
+    b, c, h, w = f1.shape
+    if route_for("cuda", max_displacement, stride) != "tc":
+        raise ValueError(f"cost_volume_cuda tc: takes stride 2 and D <= {TC_MAX_D}, got "
+                         f"max_displacement={max_displacement}, stride={stride}")
+    lib = KERNEL_TC.load()
+    d = 2 * (max_displacement // stride) + 1
+    scratch = torch.empty(lib.fsv_cost_volume_tc_scratch_bytes(b, c, h, w),
+                          dtype=torch.uint8, device=f1.device)
+    out = torch.empty(b, d * d, h, w, device=f1.device, dtype=f1.dtype)
+    with torch.cuda.device(f1.device):
+        err = lib.fsv_cost_volume_tc(
+            f1.data_ptr(), f2.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, c, h, w,
+            max_displacement, stride, int(f1.dtype == torch.bfloat16),
+            torch.cuda.current_stream(f1.device).cuda_stream)
+    _raise_on(err, "tc")
+    _count("tc")
+    return out
+
+
+def _launch_cuda_core(f1, f2, max_displacement, stride):
+    """The CUDA-core kernel: any stride and D <= 64."""
+    _check_cuda(f1, f2, max_displacement, stride)
     lib = KERNEL.load()
     b, c, h, w = f1.shape
     d = 2 * (max_displacement // stride) + 1
@@ -100,22 +167,31 @@ def cost_volume_cuda(f1: torch.Tensor, f2: torch.Tensor,
     if smem > SMEM_LIMIT:
         raise ValueError(f"cost_volume_cuda: max_displacement={max_displacement} "
                          f"needs {smem} bytes of shared memory (limit {SMEM_LIMIT})")
-    if h > 65535 or b > 65535:
-        raise ValueError("cost_volume_cuda: B and H must be at most 65535")
     out = torch.empty(b, d * d, h, w, device=f1.device, dtype=f1.dtype)
     with torch.cuda.device(f1.device):
         err = lib.fsv_cost_volume(
             f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w,
             max_displacement, stride, int(f1.dtype == torch.bfloat16),
             torch.cuda.current_stream(f1.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"cost_volume_cuda: kernel launch failed with CUDA "
-                           f"error {err}")
-    cost_volume_cuda.launches += 1
+    _raise_on(err, "cuda_core")
+    _count("cuda_core")
     return out
 
 
+def cost_volume_cuda(f1: torch.Tensor, f2: torch.Tensor,
+                     max_displacement: int = 20, stride: int = 2) -> torch.Tensor:
+    """The routed kernel on CUDA tensors (forward only).  Raises on anything
+    the kernel does not take and on a failed build or launch."""
+    _check_cuda(f1, f2, max_displacement, stride)
+    route = route_for("cuda", max_displacement, stride)
+    return _LAUNCH[route](f1, f2, max_displacement, stride)
+
+
+_LAUNCH = {"tc": _launch_tc, "cuda_core": _launch_cuda_core}
+
+# launches of either kernel, and by route
 cost_volume_cuda.launches = 0
+cost_volume_cuda.launches_by_route = {route: 0 for route in _LAUNCH}
 
 
 def cost_volume_backward_plain(f1, f2, grad, max_displacement: int, stride: int):

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one source under csrc/ with a plain C interface.  It is
-compiled with nvcc for sm_90a into fsvid2vid_tpu_torch/build/ at first use
-(or when the source is newer than the library) and loaded with ctypes.
+Each kernel is one source under csrc/ with a plain C interface (csrc/ is
+on the include path, for its .cuh headers).  It is compiled with nvcc for
+sm_90a into fsvid2vid_tpu_torch/build/ at first use (or when the source or
+any header in csrc/ is newer than the library) and loaded with ctypes.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc.
 """
@@ -46,8 +47,8 @@ class CudaLibrary:
 
     def _command(self, out: str, verbose: bool):
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", out,
-               str(self.source)]
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+               "-I", str(CSRC_DIR), "-o", out, str(self.source)]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
         return cmd
@@ -92,11 +93,18 @@ class CudaLibrary:
         """Compile the source; returns (seconds, compiler output)."""
         return self.start_build(verbose)()
 
+    def out_of_date(self) -> bool:
+        """True when the library is missing or older than its source or
+        than any header in csrc/ (which a source may include)."""
+        if not self.library.exists():
+            return True
+        inputs = [self.source, *CSRC_DIR.glob("*.cuh")]
+        return self.library.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
+
     def load(self) -> ctypes.CDLL:
         """The loaded library, built first if missing or out of date."""
         if self._lib is None:
-            if (not self.library.exists() or self.library.stat().st_mtime
-                    < self.source.stat().st_mtime):
+            if self.out_of_date():
                 self.build()
             lib = ctypes.CDLL(str(self.library))
             self.declare(lib)

@@ -38,8 +38,9 @@ LOG2E = 1.4426950408889634
     ("cpu", torch.float32, 128, "plain"),
     ("cuda", torch.bfloat16, 128, "sm90"),
     ("cuda", torch.bfloat16, 40, "sm90"),
-    ("cuda", torch.float32, 128, "cuda_core"),
-    ("cuda", torch.float32, 40, "cuda_core"),
+    ("cuda", torch.float32, 128, "sm90_f32"),
+    ("cuda", torch.float32, 40, "sm90_f32"),
+    ("cuda", torch.float32, 36, "cuda_core"),
     ("cuda", torch.bfloat16, 20, "cuda_core"),
 ])
 def test_route_rule(device_type, dtype, c, route):

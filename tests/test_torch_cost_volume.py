@@ -191,6 +191,32 @@ def test_build_compiles_for_sm_90a_into_the_build_dir(tmp_path, monkeypatch):
     assert os.listdir(tmp_path / "build") == ["libcost_volume.so"]
 
 
+def test_header_newer_than_library_marks_it_out_of_date(tmp_path, monkeypatch):
+    """A library is rebuilt when its source or any csrc/*.cuh header (which
+    the source may include) is newer than it."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    lib = cuda_build.CudaLibrary("kern", lambda lib: None)
+    assert lib.source == csrc / "kern.cu"
+    header = csrc / "common.cuh"
+    for path in (lib.source, header):
+        path.write_text("//\n")
+        os.utime(path, (100, 100))
+    assert lib.out_of_date()                      # no library yet
+    lib.library.parent.mkdir()
+    lib.library.write_text("lib\n")
+    os.utime(lib.library, (200, 200))
+    assert not lib.out_of_date()
+    os.utime(header, (300, 300))                  # the header alone changed
+    assert lib.out_of_date()
+    os.utime(lib.library, (400, 400))
+    assert not lib.out_of_date()
+    os.utime(lib.source, (500, 500))
+    assert lib.out_of_date()
+
+
 def test_failed_build_raises_and_leaves_nothing(tmp_path, monkeypatch):
     bindir = _fake_nvcc(tmp_path, "echo broken >&2\nexit 3\n")
     monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
