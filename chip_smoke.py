@@ -776,6 +776,262 @@ def phase_small_train(torch):
         raise AssertionError(f"small train step, card vs CPU: {rel}")
 
 
+# ----------------------------------------------------------------------
+# the training and inference CLIs
+# ----------------------------------------------------------------------
+CLI_SEQS, CLI_FRAMES, CLI_IMAGE = 2, 12, 512
+CLI_STEPS = 3           # sequences per epoch
+CLI_TURN_SEQS = 12      # sequences per timing turn
+CLI_TURNS = ("loader", "loaded", "loaded", "loader")
+CLI_TEST_FRAMES = 8
+
+
+def face_keypoints(np, rng, size, jitter=1.5):
+    """68 landmarks in a face layout (jaw, brows, nose, eyes, mouth) inside
+    a size x size image, with a little noise."""
+    s = size / 128.0
+    t = np.linspace(0.15 * np.pi, 0.85 * np.pi, 17)
+    kp = np.zeros((68, 2))
+    kp[:17] = np.stack([64 - 38 * np.cos(t), 52 + 42 * np.sin(t)], 1)
+    kp[17:22] = np.stack([np.linspace(36, 58, 5), [44, 41, 40, 41, 43]], 1)
+    kp[22:27] = np.stack([np.linspace(70, 92, 5), [43, 41, 40, 41, 44]], 1)
+    kp[27:31] = np.stack([[64] * 4, np.linspace(50, 68, 4)], 1)
+    kp[31:36] = np.stack([np.linspace(56, 72, 5), [72, 74, 75, 74, 72]], 1)
+    ring = np.linspace(np.pi, 3 * np.pi, 7)[:6]
+    for first, cx in ((36, 46), (42, 82)):
+        kp[first:first + 6] = np.stack([cx + 8 * np.cos(ring), 52 + 3 * np.sin(ring)], 1)
+    m = np.linspace(0, 2 * np.pi, 13)[:12]
+    kp[48:60] = np.stack([64 - 16 * np.cos(m), 86 + 6 * np.sin(m)], 1)
+    m = np.linspace(0, 2 * np.pi, 9)[:8]
+    kp[60:68] = np.stack([64 - 10 * np.cos(m), 86 + 3 * np.sin(m)], 1)
+    return (kp + rng.uniform(-jitter, jitter, kp.shape)) * s
+
+
+def write_face_dataset(root, seed):
+    """The face dataset layout (train_/test_ keypoints as 68 x 2 CSV, images
+    as JPEG) with CLI_SEQS sequences of CLI_FRAMES frames of CLI_IMAGE px:
+    smooth seeded images, keypoints that drift from frame to frame."""
+    import os
+    import numpy as np
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    for seq in range(CLI_SEQS):
+        name = f"{seq + 1:04d}"
+        for sub in ("train_keypoints", "train_images", "test_keypoints", "test_images"):
+            os.makedirs(os.path.join(root, sub, name), exist_ok=True)
+        base = face_keypoints(np, rng, CLI_IMAGE)
+        for f in range(CLI_FRAMES):
+            kp = base + rng.uniform(-2, 2, base.shape) + f
+            small = rng.randint(0, 255, (CLI_IMAGE // 16, CLI_IMAGE // 16, 3), np.uint8)
+            img = Image.fromarray(small).resize((CLI_IMAGE, CLI_IMAGE), Image.BICUBIC)
+            for kind in ("train", "test"):
+                np.savetxt(os.path.join(root, f"{kind}_keypoints", name, f"{f:05d}.txt"),
+                           kp, delimiter=",")
+                img.save(os.path.join(root, f"{kind}_images", name, f"{f:05d}.jpg"),
+                         quality=90)
+    return root
+
+
+def zero_counts(cv):
+    cv.cost_volume_cuda.launches = 0
+    for route in cv.cost_volume_cuda.launches_by_route:
+        cv.cost_volume_cuda.launches_by_route[route] = 0
+
+
+def check_counts(cv, what, expected):
+    """Every cost-volume launch since zero_counts on the tensor-core route,
+    as many as the run's flow computations."""
+    by_route = dict(cv.cost_volume_cuda.launches_by_route)
+    if by_route != {"tc": expected, "cuda_core": 0}:
+        raise AssertionError(f"{what}: cost volume launches by route {by_route}, "
+                             f"expected {expected} on the tensor-core route")
+    return by_route
+
+
+def trained_tensors(trainer):
+    """Networks' state and both Adam states of a trainer, by name."""
+    out = {}
+    for key in ("netG", "netD", "netDT"):
+        for name, t in getattr(trainer.models, key).state_dict().items():
+            out[f"{key}.{name}"] = t
+    for key in ("opt_G", "opt_D"):
+        for i, moments in getattr(trainer.state, key).state_dict()["state"].items():
+            for m, t in moments.items():
+                out[f"{key}.{i}.{m}"] = t
+    return out
+
+
+def sequence_times(timings):
+    return [{"epoch": t["epoch"], "iter": t["iter"], "frames": t["frames"],
+             "wait_ms": t["wait_ms"], "seq_ms": t["ms"], "ms_per_step": t["ms"] / t["frames"]}
+            for t in timings]
+
+
+def profile_host(fn, top=8):
+    """One call of `fn` on this thread under cProfile: its ms, and the
+    functions with the most time of their own."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    ms = 1e3 * (time.perf_counter() - t0)
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {"ms": ms, "top_own_ms": [
+        {"function": f"{fn_[0].rsplit('/', 1)[-1]}:{fn_[1]}:{fn_[2]}", "calls": st[1],
+         "own_ms": 1e3 * st[2], "cumulative_ms": 1e3 * st[3]} for fn_, st in rows]}
+
+
+def phase_cli(torch):
+    """The user's entry points at full face-256 width, batch 4, bf16, on a
+    seeded synthetic face dataset of 512 px JPEGs: `cli.train.main` for one
+    single-frame and one temporal epoch (the loader on its worker threads,
+    VGG19 and the FlowNet2 teacher on, kernel B2 once per flow computation),
+    a resume with --continue_train for a third epoch, turns that time the
+    same batches with the loader's threads working and already loaded,
+    the checkpoint's size and its save and restore times, then `cli.test`
+    for CLI_TEST_FRAMES frames from `latest`."""
+    import math
+    import os
+    import tempfile
+    import warnings
+    from fsvid2vid_tpu_torch.cli import test as cli_test
+    from fsvid2vid_tpu_torch.cli import train as cli_train
+    from fsvid2vid_tpu_torch.data.loader import SequenceLoader
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.training import checkpoint as ckpt
+    from fsvid2vid_tpu_torch.training.trainer import to_device
+    res = {"phase": "cli_train_face_256"}
+    # the rasteriser's quadratic fits of near-vertical three-point edges
+    warnings.filterwarnings("ignore", message="Polyfit may be poorly conditioned")
+    with tempfile.TemporaryDirectory(prefix="fsv_cli_") as tmp:
+        t0 = time.perf_counter()
+        data = write_face_dataset(os.path.join(tmp, "data"), seed=41)
+        res["dataset"] = {"sequences": CLI_SEQS, "frames": CLI_FRAMES, "px": CLI_IMAGE,
+                          "seconds": time.perf_counter() - t0}
+        ckpts = os.path.join(tmp, "checkpoints")
+        argv = ["--name", "cli", "--dataroot", data, "--checkpoints_dir", ckpts,
+                "--batchSize", "4", "--niter", "2", "--niter_single", "1",
+                "--niter_decay", "0", "--steps_per_epoch", str(CLI_STEPS),
+                "--save_epoch_freq", "1000", "--print_freq", "4", "--display_freq", "4"]
+
+        # ---- train: epoch 1 single-frame, epoch 2 temporal (2 frames) ----
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(cv)
+        t0 = time.perf_counter()
+        run = cli_train.main(argv)
+        torch.cuda.synchronize()
+        res["train_seconds"] = time.perf_counter() - t0
+        res["launches_train"] = check_counts(cv, "cli train", CLI_STEPS * 1 + CLI_STEPS * 2)
+        cfg, trainer = run.cfg, run.trainer
+        res["config"] = {k: getattr(cfg, k) for k in (
+            "fine_size", "batch_size", "ngf", "n_downsample_G", "n_adaptive_layers", "ndf",
+            "num_workers", "compute_dtype", "no_vgg_loss", "no_flow_gt", "step_mode")}
+        run_dir = os.path.join(ckpts, "cli")
+        for name in ("loss_log.txt", "latest", os.path.join("web", "index.html")):
+            if not os.path.exists(os.path.join(run_dir, name)):
+                raise AssertionError(f"cli train wrote no {name}")
+        res["epoch_losses"] = trainer.epoch_metrics
+        bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
+               if not math.isfinite(v)]
+        if sorted(trainer.epoch_metrics) != [1, 2] or bad:
+            raise AssertionError(f"cli train epochs {sorted(trainer.epoch_metrics)}, "
+                                 f"non-finite losses {bad}")
+        res["sequences"] = sequence_times(trainer.timings)
+
+        # ---- resume at epoch 3 with the saved state, then finish it ----
+        saved = {k: v.clone() for k, v in trained_tensors(trainer).items()}
+        del run, trainer
+        torch.cuda.empty_cache()
+        parser = cli_train.build_arg_parser()
+        zero_counts(cv)
+        resumed = cli_train.setup(parser.parse_args(
+            argv + ["--continue_train", "--niter", "3"]), parser)
+        trainer = resumed.trainer
+        if (trainer.start_epoch, trainer.epoch_iter) != (3, 0):
+            raise AssertionError(f"resumed at {(trainer.start_epoch, trainer.epoch_iter)}")
+        got = trained_tensors(trainer)
+        differ = [k for k, v in saved.items() if k not in got or not torch.equal(got[k], v)]
+        if differ or len(got) != len(saved):
+            raise AssertionError(f"resumed state differs from the saved one: {differ[:5]}")
+        res["resume"] = {"start_epoch": trainer.start_epoch, "tensors_equal": len(saved)}
+        del saved
+        trainer.fit(resumed.make_data_iter, resumed.teacher)
+        resumed.vis.close()
+        res["resume"]["launches"] = check_counts(cv, "cli resume", CLI_STEPS * 2)
+        if sorted(trainer.epoch_metrics) != [3] or not all(
+                math.isfinite(v) for v in trainer.epoch_metrics[3].values()):
+            raise AssertionError(f"resumed epoch: {trainer.epoch_metrics}")
+        res["resume"]["sequences"] = sequence_times(trainer.timings)
+
+        # ---- the loader's threads against batches already loaded ----
+        loader = SequenceLoader(cfg, steps_per_epoch=CLI_TURN_SEQS, seed=cfg.seed)
+        loader.set_epoch_frames(2)
+        t0 = time.perf_counter()
+        loaded = list(loader.epoch(3))
+        res["loader_alone_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / CLI_TURN_SEQS
+        res["loader_batch_profile"] = profile_host(
+            lambda: loader._batch(loader.dataset, 3, 0))
+        turns = []
+        for turn in CLI_TURNS:
+            n0 = len(trainer.timings)
+            trainer.train_epoch(3, loader.epoch(3) if turn == "loader" else iter(loaded),
+                                resumed.teacher)
+            times = sequence_times(trainer.timings[n0:])
+            turns.append({"turn": turn, "ms_per_step": [t["ms_per_step"] for t in times],
+                          "wait_ms": [t["wait_ms"] for t in times]})
+        mean = lambda kind: (sum(sum(t["ms_per_step"]) for t in turns if t["turn"] == kind)
+                             / sum(len(t["ms_per_step"]) for t in turns if t["turn"] == kind))
+        res["turns"] = turns
+        res["turn_workers"] = loader.num_workers
+        res["ms_per_step_loader"], res["ms_per_step_loaded"] = mean("loader"), mean("loaded")
+        res["loader_cost_share"] = res["ms_per_step_loader"] / res["ms_per_step_loaded"] - 1
+
+        # ---- one teacher call on a loaded 2-frame batch ----
+        seq = to_device(loaded[0], resumed.device)
+        teacher_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resumed.teacher(cfg, seq, 3)
+            torch.cuda.synchronize()
+            teacher_ms.append(1e3 * (time.perf_counter() - t0))
+        res["teacher_ms"] = teacher_ms
+
+        # ---- the checkpoint: bytes, save and restore seconds ----
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(cfg, trainer.state, 4)
+        res["checkpoint_save_seconds"] = time.perf_counter() - t0
+        res["checkpoint_bytes"] = os.path.getsize(path)
+        t0 = time.perf_counter()
+        ckpt.restore(cfg, trainer.state)
+        torch.cuda.synchronize()
+        res["checkpoint_restore_seconds"] = time.perf_counter() - t0
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del resumed, trainer, loaded, seq
+        torch.cuda.empty_cache()
+
+        # ---- inference from latest ----
+        t0 = time.perf_counter()
+        web = cli_test.main([
+            "--name", "cli", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--results_dir", os.path.join(tmp, "results"), "--how_many", str(CLI_TEST_FRAMES),
+            "--seq_path", os.path.join(data, "test_images", "0001/"),
+            "--ref_img_path", os.path.join(data, "test_images", "0002/")])
+        res["test_seconds"] = time.perf_counter() - t0
+        images = os.listdir(os.path.join(web, "images"))
+        res["test_images"] = {kind: sum(kind in i for i in images)
+                              for kind in ("synthesized", "input_label", "ref_flow")}
+        if res["test_images"]["synthesized"] != CLI_TEST_FRAMES:
+            raise AssertionError(f"cli test wrote {res['test_images']}")
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -795,6 +1051,7 @@ def main() -> int:
     phase_k1(torch)
     train_res = phase_train(torch)
     phase_small_train(torch)
+    cli_res = phase_cli(torch)
     bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
     c36 = kern["ragged_c36", "float32"]
     routes = slice_res["launches_by_route"]
@@ -835,6 +1092,9 @@ def main() -> int:
         "previous_design": b1_cuda_core}, {
         "name": "cost_volume_tc", **b2, "source": "fsvid2vid_tpu_torch/csrc/cost_volume_tc.cu",
         "launches": train_res["cost_volume_launches_by_route"]["tc"],
+        "launches_by_path": {"train_face_256": train_res["cost_volume_launches_by_route"]["tc"],
+                             "cli_train_face_256": cli_res["launches_train"]["tc"],
+                             "cli_resume": cli_res["resume"]["launches"]["tc"]},
         **{k: cv_main[k] for k in cv_keys},
         **{k: cv_main[k] for k in ("previous_design_ms", "bound_share", "design_bound_ms",
                                    "design_bound_share", "f32_cuda_core_bound_ms")},

@@ -1,8 +1,9 @@
 """Typed configuration for the PyTorch port of the few-shot vid2vid framework.
 
 The port's own copy of fsvid2vid_tpu/config.py, without the fields that only
-select TPU mechanisms (compute/param dtypes, remat, mesh, Pallas switch,
-space-to-depth layouts).  `Config.from_json` ignores unknown fields, so a
+select TPU mechanisms (param dtype, remat, mesh, Pallas switch,
+space-to-depth layouts), and with `continue_train`, which the JAX package
+leaves to the presence of a checkpoint.  `Config.from_json` ignores unknown fields, so a
 config written by the JAX package loads here unchanged.
 
 Replaces the reference's two-stage argparse tree (options/base_options.py:21-132,
@@ -156,7 +157,12 @@ class Config:
     results_dir: str = "./results/"
     which_epoch: str = "latest"
 
-    # ---- training-only switches of the JAX package, kept for later slices ----
+    # ---- precision and resume ----
+    compute_dtype: str = "bfloat16"  # 'bfloat16': convolutions and matrix
+    # products under autocast; parameters, optimizer moments and losses f32
+    continue_train: bool = False     # resume from <checkpoints_dir>/<name>/latest
+
+    # ---- training-only switches of the JAX package ----
     flow_teacher: str = "flownet2"   # 'flownet2' | 'none'
     step_mode: str = "vjp"           # 'vjp' (default: ONE vjp-linearized
     # generation shared by the D and G phases — bitwise step-1 parity, one

@@ -51,7 +51,8 @@ Tensor = torch.Tensor
 class StepFlags:
     warp_prev: bool = False   # temporal phase (epoch > niter_single)
     has_prev: bool = False    # the previous-frames buffers are filled (t > 0)
-    use_pool: bool = False    # fake-image replay pool (not ported)
+    use_pool: bool = False    # D sees replay-pool fakes (cfg.pool_size > 0); the
+    # batch then carries pool_fake (B, H, W, 3) and pool_mask (B, 1, 1, 1) bool
 
     @property
     def temporal_active(self) -> bool:
@@ -199,8 +200,8 @@ def _d_losses(cfg, models, generated, batch_n, prevs, flags, outputs, masks, ref
 
 
 def _prepare(cfg, state: TrainState, batch, flags: StepFlags):
-    if flags.use_pool:
-        raise NotImplementedError("the fake-image replay pool is not ported")
+    if flags.use_pool and not {"pool_fake", "pool_mask"} <= set(batch):
+        raise ValueError("use_pool needs pool_fake and pool_mask in the batch")
     models = state.models
     models.netG.train()
     for d in models.discriminators():
@@ -211,9 +212,16 @@ def _prepare(cfg, state: TrainState, batch, flags: StepFlags):
     return models, batch_n
 
 
-def _detached(outputs):
+def _detached(outputs, batch, flags: StepFlags):
+    """The generations D is trained on; with the replay pool, each sample's
+    fake image is swapped for a stored one where pool_mask says so (the
+    trainer owns the pool, utils/image_pool.py)."""
     det = lambda x: None if x is None else x.detach()
-    return dict(fake_image=det(outputs["fake_image"]), fake_raw=det(outputs["fake_raw"]))
+    fake = det(outputs["fake_image"])
+    if flags.use_pool:
+        fake = torch.where(batch["pool_mask"].to(fake.device),
+                           _nchw(batch["pool_fake"]).to(fake), fake)
+    return dict(fake_image=fake, fake_raw=det(outputs["fake_raw"]))
 
 
 @contextlib.contextmanager
@@ -268,8 +276,8 @@ def train_step(cfg: Config, state: TrainState, batch, prevs, flags: StepFlags,
     models, batch_n = _prepare(cfg, state, batch, flags)
     with _autocast(batch_n["tgt_image"].device, compute_dtype):
         outputs, masks, refs = generate_images(cfg, models, batch, prevs, flags)
-        d = _d_losses(cfg, models, _detached(outputs), batch_n, prevs, flags,
-                      outputs, masks, refs)
+        d = _d_losses(cfg, models, _detached(outputs, batch, flags), batch_n, prevs,
+                      flags, outputs, masks, refs)
     _update(state.opt_D, d[0])
     # the G phase sees the updated D; its pass advances D's u / v for this
     # pass only, and D takes no gradient from it
@@ -289,8 +297,8 @@ def train_step_faithful(cfg: Config, state: TrainState, batch, prevs,
     with _autocast(device, compute_dtype):
         with torch.no_grad():
             outputs_d, masks, refs = generate_images(cfg, models, batch, prevs, flags)
-        d = _d_losses(cfg, models, _detached(outputs_d), batch_n, prevs, flags,
-                      outputs_d, masks, refs)
+        d = _d_losses(cfg, models, _detached(outputs_d, batch, flags), batch_n, prevs,
+                      flags, outputs_d, masks, refs)
     _update(state.opt_D, d[0])
     with _frozen(models.discriminators(), restore_buffers=False):
         with _autocast(device, compute_dtype):

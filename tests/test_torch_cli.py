@@ -1,0 +1,148 @@
+"""The port's train and test CLIs on the CPU: `python -m
+fsvid2vid_tpu_torch.cli.train --device cpu` at tests/test_cli.py's tiny
+flags on a synthetic face dataset, then `python -m
+fsvid2vid_tpu_torch.cli.test` on its checkpoint; every flag the port cannot
+honour yet, and a missing card, exit non-zero with a message naming why."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from fsvid2vid_tpu_torch.cli import test as cli_test
+from fsvid2vid_tpu_torch.cli import train as cli_train
+from tests.test_torch_data import (  # noqa: F401 (few_threads: autouse)
+    TORCH_THREADS, few_threads, write_face_dataset)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--ngf", "4", "--ndf", "4", "--fineSize", "32", "--loadSize", "32",
+        "--n_downsample_G", "3", "--n_adaptive_layers", "2", "--no_vgg_loss"]
+FACE = ["--dataset_mode", "fewshot_face", "--adaptive_spade", "--warp_ref",
+        "--spade_combine"]
+
+
+@pytest.fixture(scope="module")
+def data(tmp_path_factory):
+    return write_face_dataset(str(tmp_path_factory.mktemp("cli")), n_frames=6, size=64)
+
+
+def run_module(module, argv, timeout=300):
+    env = dict({k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"},
+               OMP_NUM_THREADS=str(TORCH_THREADS))
+    return subprocess.run([sys.executable, "-m", module] + argv, cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def train_argv(data, ckpt, *extra):
+    return (["--name", "smoke", "--dataroot", data, "--checkpoints_dir", ckpt,
+             "--batchSize", "2", "--niter", "2", "--niter_decay", "0",
+             "--niter_single", "1", "--no_flow_gt", "--steps_per_epoch", "2",
+             "--num_workers", "2", "--display_freq", "2", "--print_freq", "2"]
+            + FACE + TINY + list(extra))
+
+
+def test_train_then_test(data, tmp_path):
+    """Two epochs (the second temporal) on worker threads, then 3 frames of
+    inference from `latest`."""
+    ckpt = str(tmp_path / "ckpt")
+    r = run_module("fsvid2vid_tpu_torch.cli.train",
+                   train_argv(data, ckpt, "--device", "cpu"))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "temporal phase begins" in r.stdout
+    run_dir = os.path.join(ckpt, "smoke")
+    for name in ("latest", "loss_log.txt", "config.json", os.path.join("web", "index.html")):
+        assert os.path.exists(os.path.join(run_dir, name)), name
+    with open(os.path.join(run_dir, "loss_log.txt")) as f:
+        assert "(epoch: 2, iters: 2" in f.read()
+
+    results = str(tmp_path / "results")
+    r = run_module("fsvid2vid_tpu_torch.cli.test", [
+        "--name", "smoke", "--dataroot", data, "--checkpoints_dir", ckpt,
+        "--results_dir", results, "--device", "cpu", "--how_many", "3",
+        "--seq_path", os.path.join(data, "test_images", "0001/"),
+        "--ref_img_path", os.path.join(data, "test_images", "0002/")] + FACE + TINY)
+    assert r.returncode == 0, r.stderr[-3000:]
+    page = os.path.join(results, "smoke", "0002_0001")
+    assert os.path.exists(os.path.join(page, "index.html"))
+    images = os.listdir(os.path.join(page, "images"))
+    assert sum("synthesized" in i for i in images) == 3
+    assert sum("ref_flow" in i for i in images) == 3
+    assert "no checkpoint found" not in r.stdout
+
+
+def test_continue_train_resumes_in_process(data, tmp_path):
+    """main() returns its run: a second run with --continue_train and one
+    more epoch starts at epoch 2 from the saved state and finishes it."""
+    ckpt = str(tmp_path / "ckpt")
+    argv = train_argv(data, ckpt, "--device", "cpu", "--niter", "1", "--niter_single", "1")
+    first = cli_train.main(argv)
+    g = {k: v.clone() for k, v in first.trainer.models.netG.state_dict().items()}
+    resumed = cli_train.setup(cli_train.build_arg_parser().parse_args(
+        argv + ["--continue_train", "--niter", "2"]))
+    assert resumed.trainer.start_epoch == 2
+    assert resumed.cfg.compute_dtype == "bfloat16"
+    for k, v in resumed.trainer.models.netG.state_dict().items():
+        assert torch.equal(v, g[k]), k
+    resumed.trainer.fit(resumed.make_data_iter, resumed.teacher)
+    from fsvid2vid_tpu_torch.training.checkpoint import load
+    assert load(resumed.cfg)["cursor"] == {"epoch": 3, "epoch_iter": 0}
+    assert resumed.trainer.state.step == first.trainer.state.step + 2 * 2
+
+
+UNPORTED = [
+    (["--distributed"], "A.12"), (["--coordinator_address", "h:1"], "A.12"),
+    (["--num_processes", "2"], "A.12"), (["--process_id", "1"], "A.12"),
+    (["--remat"], "A.9"), (["--adaptive_conv"], "A.2"), (["--refine_face"], "A.7"),
+    (["--add_face_D"], "A.8"), (["--dataset_mode", "fewshot_pose"], "A.9"),
+    (["--dataset_mode", "fewshot_street"], "A.9"),
+]
+
+
+@pytest.mark.parametrize("flags,item", UNPORTED, ids=[f[0][2:] + (f"_{f[1]}" if len(f) > 1 else "")
+                                                     for f, _ in UNPORTED])
+def test_unported_flags_exit_naming_their_item(data, tmp_path, capsys, flags, item):
+    argv = train_argv(data, str(tmp_path), "--device", "cpu") + flags
+    with pytest.raises(SystemExit) as e:
+        cli_train.main(argv)
+    assert e.value.code != 0
+    assert f"ROADMAP.md {item}" in capsys.readouterr().err
+    assert not os.path.exists(os.path.join(str(tmp_path), "smoke"))
+
+
+def test_finetune_exits_naming_its_item(capsys):
+    with pytest.raises(SystemExit) as e:
+        cli_test.main(["--finetune", "--device", "cpu"])
+    assert e.value.code != 0
+    assert "ROADMAP.md A.11" in capsys.readouterr().err
+
+
+def test_without_device_and_card_the_command_fails(data, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = run_module("fsvid2vid_tpu_torch.cli.train", train_argv(data, str(tmp_path)))
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert not os.path.exists(os.path.join(str(tmp_path), "smoke", "latest"))
+
+
+def test_checkpoint_files_load_by_name(tmp_path):
+    """--vgg_ckpt takes torchvision's vgg19 state dict (more layers than the
+    loss uses, a classifier, optionally under "state_dict"); a file that
+    lacks one of the layers the loss uses is refused."""
+    from fsvid2vid_tpu_torch.models import build_on_device, init_plain_convs
+    from fsvid2vid_tpu_torch.models.vgg import Vgg19Features
+    make = lambda seed: init_plain_convs(build_on_device(Vgg19Features, "cpu"),
+                                         torch.Generator().manual_seed(seed))
+    source, target = make(1), make(2)
+    sd = dict(source.state_dict(), **{"features.34.weight": torch.zeros(512, 512, 3, 3),
+                                      "classifier.0.bias": torch.zeros(4096)})
+    path = str(tmp_path / "vgg19.pth")
+    torch.save({"state_dict": sd}, path)
+    cli_train.load_vgg19(target, path)
+    for k, v in source.state_dict().items():
+        assert torch.equal(target.state_dict()[k], v), k
+    del sd["features.28.weight"]
+    torch.save(sd, path)
+    with pytest.raises(RuntimeError, match="features.28.weight"):
+        cli_train.load_vgg19(target, path)

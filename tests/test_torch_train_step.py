@@ -326,8 +326,10 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(shared):
 
 @pytest.mark.parametrize("kw", [dict(use_pool=True)])
 def test_unported_step_options_raise(shared, kw):
+    """The replay pool is ported (tests/test_torch_trainer.py holds it
+    against the JAX step); a pool step without the pool's inputs raises."""
     state = port_state(shared)
     batch = tbatch(shared.batch)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="pool_fake and pool_mask"):
         tstep.train_step(shared.tcfg, state, batch,
                          tstep.init_prevs(shared.tcfg, batch), tstep.StepFlags(**kw))
