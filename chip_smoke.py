@@ -20,7 +20,11 @@ to end at the full width of face_config:
     FlowNet2; the flow teacher (the tensor-core cost volume once per flow
     call), then single-frame and temporal steps of `train_step` and
     `train_step_faithful` in bf16, two steps in f32, and a small model's
-    step on the card against the CPU.
+    step on the card against the CPU;
+  * the train and test CLIs for face 256 (`phase_cli`) and for pose at
+    512 x 256 with the face discriminator and remat (`phase_pose_cli`, the
+    teacher's cost volume on 64 x 32 maps of the label's DensePose
+    channels), and a small pose model's step on the card against the CPU.
 
 Each phase prints one JSON line; the kernels line comes before the last
 line, and the last line is
@@ -275,9 +279,12 @@ def phase_kernels(torch):
 # the cost-volume kernel
 # ----------------------------------------------------------------------
 # (B, C, H, W, max_displacement, stride): the teacher's call on a 3-frame
-# sequence of batch 4 at 256 px; the same net at 512 px; a ragged shape; a
-# stride-1 grid, which only the CUDA-core kernel takes
+# sequence of batch 4 at 256 px; the same net at 512 px; the pose teacher's
+# on 512 x 256 label maps (a non-square map whose rows are narrower than the
+# +-20 band); a ragged shape; a stride-1 grid, which only the CUDA-core
+# kernel takes
 CV_SHAPES = {"slice": (12, 256, 32, 32, 20, 2), "px512": (4, 256, 64, 64, 20, 2),
+             "pose": (12, 256, 64, 32, 20, 2),
              "ragged": (2, 40, 13, 19, 4, 2), "stride1": (2, 40, 13, 19, 4, 1)}
 # kernel vs plain version, max abs error.  Both sum <= 256 f32 products of
 # N(0, 1) inputs and divide by C, so |out| < 1:
@@ -327,9 +334,12 @@ def check_cost_volume(torch, dtype_name, case):
         raise AssertionError(f"cost volume not finite ({case}, {dtype_name})")
     err = (out.float() - ref.float()).abs().max().item()
     tol = CV_TOL[dtype_name]
-    flops = 2.0 * b * h * w * d * d * c
+    # the useful products: those of the (pixel, shift) pairs whose shifted
+    # pixel lies in the map; the others are zero by definition and need none
+    flops = 2.0 * b * c * sum(max(0, h - abs(dy)) * max(0, w - abs(dx))
+                              for dy, dx in cv.displacements(md, stride))
     nbytes = (2.0 * b * c * h * w + d * d * b * h * w) * f1.element_size()
-    # the useful products at the peak of the arithmetic that keeps the
+    # those products at the peak of the arithmetic that keeps the
     # dtype's accuracy: bf16 products for bf16; for f32 on the tensor cores
     # three tf32 products per useful one (3xTF32; six split-bf16 products at
     # the bf16 peak take as long), on the CUDA cores f32 FMAs
@@ -1032,6 +1042,222 @@ def phase_cli(torch):
     return res
 
 
+# ----------------------------------------------------------------------
+# pose training (scripts/pose/train.sh) and its CLIs
+# ----------------------------------------------------------------------
+POSE_FLAGS = ["--dataset_mode", "fewshot_pose", "--adaptive_spade", "--warp_ref",
+              "--spade_combine", "--remove_face_labels", "--add_face_D", "--remat"]
+POSE_SEQS, POSE_FRAMES, POSE_SOURCE = 2, 12, (768, 512)   # source frames (H, W)
+POSE_STEPS = 3          # sequences per epoch
+POSE_TEST_FRAMES = 8
+# small pose model, one temporal f32 step: the card (B2 kernel in the
+# teacher) vs the CPU (plain version), as SMALL_STEP_RTOL for face
+SMALL_POSE_RTOL = 1e-3
+
+
+def pose_batch(cfg, root, seed):
+    """One loader batch of 2-frame sequences from a synthetic pose dataset
+    written under `root` (numpy, channel-last)."""
+    from fsvid2vid_tpu_torch.data.loader import SequenceLoader
+    from fsvid2vid_tpu_torch.data.synthetic import write_pose_dataset
+    write_pose_dataset(root, seed=seed, n_seqs=2, n_frames=4, size=(256, 192))
+    loader = SequenceLoader(cfg.replace(dataroot=root), steps_per_epoch=1, seed=seed,
+                            num_workers=0)
+    loader.set_epoch_frames(2)
+    return next(iter(loader.epoch(2)))
+
+
+def phase_small_pose(torch):
+    """A small pose model's first temporal f32 train step, teacher, face D
+    and remat included, on the card (B2 kernel) against the CPU (plain
+    version), from the same seed and the same loaded batch.  128 x 64:
+    FlowNet2 takes multiples of 64 pixels, so 64 x 32 would leave the
+    teacher no input."""
+    import os
+    import tempfile
+    from fsvid2vid_tpu_torch.config import pose_config
+    from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
+    from fsvid2vid_tpu_torch.training.state import TrainState, build_models
+    from fsvid2vid_tpu_torch.training.step import StepFlags, train_step
+    from fsvid2vid_tpu_torch.training.trainer import to_device
+    cfg = pose_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
+                      n_downsample_G=3, n_adaptive_layers=2, batch_size=2, niter_single=0,
+                      compute_dtype="float32")
+    with tempfile.TemporaryDirectory(prefix="fsv_small_pose_") as tmp:
+        seq_np = pose_batch(cfg, os.path.join(tmp, "data"), seed=51)
+    losses, conf = {}, {}
+    for device in ("cuda", "cpu"):
+        gen = torch.Generator().manual_seed(31)
+        state = TrainState(cfg, build_models(cfg, device=device, generator=gen))
+        teacher = FlowTeacher(cfg, device=device, generator=gen)
+        seq = to_device(seq_np, torch.device(device))
+        flow_gt, conf_gt = teacher(cfg, seq, epoch=1)
+        conf[device] = [c.mean().item() for c in conf_gt]
+        at = lambda xs: [x[:, 1] for x in xs]
+        batch = dict(tgt_label=seq["tgt_label"][:, 1], tgt_image=seq["tgt_image"][:, 1],
+                     ref_labels=seq["ref_labels"], ref_images=seq["ref_images"],
+                     flow_gt=at(flow_gt), conf_gt=at(conf_gt))
+        prevs = dict(label=seq["tgt_label"][:, 0], real=seq["tgt_image"][:, 0],
+                     fake=seq["tgt_image"][:, 0])
+        _, out, _ = train_step(cfg, state, batch, prevs, StepFlags(True, True))
+        losses[device] = {k: v.item() for k, v in out.items()}
+    rel = {k: abs(v - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
+           for k, v in losses["cuda"].items()}
+    emit({"phase": "small_pose_card_vs_cpu", "size": [cfg.height, cfg.width],
+          "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "conf_mean": conf,
+          "max_rel_err": max(rel.values()), "tol": SMALL_POSE_RTOL})
+    if not max(rel.values()) <= SMALL_POSE_RTOL:
+        raise AssertionError(f"small pose step, card vs CPU: {rel}")
+    if not all(losses["cuda"][k] > 0 for k in ("Df_real", "Df_fake", "Gf_GAN")):
+        raise AssertionError(f"small pose step: face D losses {losses['cuda']}")
+
+
+def phase_pose_cli(torch):
+    """The user's pose entry points at the full width of scripts/pose/train.sh
+    (pose_config: 512 x 256, 6-channel labels, face D on 128 x 128 crops,
+    remove_face_labels, remat, VGG19 and the FlowNet2 teacher on the labels,
+    bf16) at the reference's per-GPU batch of 4, on a seeded synthetic pose
+    dataset: `cli.train.main` for one single-frame and one temporal epoch on
+    4 loader threads (kernel B2 once per flow computation, at 64 x 32), the
+    teacher's time per call, one more temporal sequence with remat off and
+    on from the same state (step times, peak memory, and the device time of
+    a step under torch.profiler), the checkpoint's size and save time, then
+    `cli.test` for POSE_TEST_FRAMES frames from `latest`."""
+    import math
+    import os
+    import tempfile
+    from fsvid2vid_tpu_torch.cli import test as cli_test
+    from fsvid2vid_tpu_torch.cli import train as cli_train
+    from fsvid2vid_tpu_torch.data.loader import SequenceLoader
+    from fsvid2vid_tpu_torch.data.synthetic import write_pose_dataset
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.training import checkpoint as ckpt
+    from fsvid2vid_tpu_torch.training.step import train_step
+    from fsvid2vid_tpu_torch.training.trainer import to_device
+    res = {"phase": "cli_train_pose_512x256"}
+    with tempfile.TemporaryDirectory(prefix="fsv_pose_") as tmp:
+        t0 = time.perf_counter()
+        data = write_pose_dataset(os.path.join(tmp, "data"), seed=61, n_seqs=POSE_SEQS,
+                                  n_frames=POSE_FRAMES, size=POSE_SOURCE)
+        res["dataset"] = {"sequences": POSE_SEQS, "frames": POSE_FRAMES,
+                          "source_hw": POSE_SOURCE, "densemask": True,
+                          "seconds": time.perf_counter() - t0}
+        ckpts = os.path.join(tmp, "checkpoints")
+        argv = ["--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpts,
+                "--batchSize", "4", "--niter", "2", "--niter_single", "1",
+                "--niter_decay", "0", "--steps_per_epoch", str(POSE_STEPS),
+                "--save_epoch_freq", "1000", "--print_freq", "4", "--display_freq", "4"
+                ] + POSE_FLAGS
+
+        # ---- train: epoch 1 single-frame, epoch 2 temporal (2 frames) ----
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(cv)
+        t0 = time.perf_counter()
+        run = cli_train.main(argv)
+        torch.cuda.synchronize()
+        res["train_seconds"] = time.perf_counter() - t0
+        res["launches_train"] = check_counts(cv, "pose cli train", POSE_STEPS * 1 + POSE_STEPS * 2)
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        cfg, trainer = run.cfg, run.trainer
+        res["config"] = {k: getattr(cfg, k) for k in (
+            "height", "width", "input_nc", "batch_size", "ngf", "n_downsample_G",
+            "n_adaptive_layers", "ndf", "add_face_D", "remove_face_labels", "remat",
+            "n_shot", "n_frames_G", "num_workers", "compute_dtype", "no_vgg_loss",
+            "no_flow_gt")}
+        count = lambda m: sum(p.numel() for p in m.parameters())
+        res["params"] = {k: count(getattr(trainer.models, "net" + k)) for k in ("G", "D", "DT", "Df")}
+        if not (cfg.is_pose and cfg.remat and cfg.add_face_D and cfg.remove_face_labels):
+            raise AssertionError(f"pose cli config: {res['config']}")
+        run_dir = os.path.join(ckpts, "pose")
+        for name in ("loss_log.txt", "latest", os.path.join("web", "index.html")):
+            if not os.path.exists(os.path.join(run_dir, name)):
+                raise AssertionError(f"pose cli train wrote no {name}")
+        res["epoch_losses"] = trainer.epoch_metrics
+        bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
+               if not math.isfinite(v)]
+        face = [(e, k) for e, m in trainer.epoch_metrics.items()
+                for k in ("Df_real", "Df_fake", "Gf_GAN", "Gf_GAN_Feat") if not m[k] > 0]
+        if sorted(trainer.epoch_metrics) != [1, 2] or bad or face:
+            raise AssertionError(f"pose cli epochs {sorted(trainer.epoch_metrics)}, "
+                                 f"non-finite losses {bad}, face D losses not > 0 {face}")
+        res["sequences"] = sequence_times(trainer.timings)
+        res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
+
+        # ---- the teacher on a loaded 2-frame batch (two flow computations) ----
+        loader = SequenceLoader(cfg, steps_per_epoch=1, seed=cfg.seed + 1)
+        loader.set_epoch_frames(2)
+        seq = to_device(next(iter(loader.epoch(3))), run.device)
+        zero_counts(cv)
+        teacher_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.teacher(cfg, seq, 2)
+            torch.cuda.synchronize()
+            teacher_ms.append(1e3 * (time.perf_counter() - t0))
+        res["teacher_ms"] = teacher_ms
+        res["launches_teacher"] = check_counts(cv, "pose teacher", 3 * 2)
+
+        # ---- one more temporal sequence with remat off and on, each run
+        # from the same state (saved once, restored before every run) on the
+        # same batch: first on the host clock with its peak memory, then
+        # under torch.profiler for the device time of its last step ----
+        netG = trainer.models.netG
+        ckpt.save(cfg, trainer.state, 3, label="remat_pair")
+        for remat in (False, True):
+            rcfg = cfg.replace(remat=remat)
+            netG.cfg = rcfg
+            for profile in (False, True):
+                ckpt.restore(cfg, trainer.state, "remat_pair")
+                torch.manual_seed(cfg.seed)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                log = []
+                run_train_sequence(torch, rcfg, trainer.state, run.teacher, train_step, seq,
+                                   2, cfg.compute_dtype, log, profile=profile)
+                key = "remat_" + ("on" if remat else "off") + ("_profiled" if profile else "")
+                res[key] = log[0]
+        netG.cfg = cfg
+        on, off = res["remat_on"], res["remat_off"]
+        res["remat_peak_saving_gb"] = off["peak_memory_gb"] - on["peak_memory_gb"]
+        # the recomputation's cost on the device: the profiled last step's
+        # kernel time with remat on less that with it off
+        res["remat_step_device_ms"] = {
+            k: res[f"remat_{k}_profiled"]["profile_step"]["device_ms"] for k in ("off", "on")}
+        res["remat_recompute_device_ms"] = (res["remat_step_device_ms"]["on"]
+                                            - res["remat_step_device_ms"]["off"])
+        # the pairing: both unprofiled runs' losses, frame by frame
+        res["remat_loss_max_abs_diff"] = max(
+            abs(a[k] - b[k]) for a, b in zip(on["losses"], off["losses"]) for k in a)
+
+        # ---- the checkpoint: bytes and save seconds ----
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = ckpt.save(cfg, trainer.state, 3)
+        res["checkpoint_save_seconds"] = time.perf_counter() - t0
+        res["checkpoint_bytes"] = os.path.getsize(path)
+        del run, trainer, netG, seq
+        torch.cuda.empty_cache()
+
+        # ---- inference from latest ----
+        t0 = time.perf_counter()
+        web = cli_test.main([
+            "--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--results_dir", os.path.join(tmp, "results"), "--how_many", str(POSE_TEST_FRAMES),
+            "--seq_path", os.path.join(data, "test_images", "0001/"),
+            "--ref_img_path", os.path.join(data, "test_images", "0002/")] + POSE_FLAGS)
+        res["test_seconds"] = time.perf_counter() - t0
+        images = os.listdir(os.path.join(web, "images"))
+        res["test_images"] = {kind: sum(kind in i for i in images)
+                              for kind in ("synthesized", "input_label", "ref_flow")}
+        if res["test_images"]["synthesized"] != POSE_TEST_FRAMES:
+            raise AssertionError(f"pose cli test wrote {res['test_images']}")
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1052,6 +1278,8 @@ def main() -> int:
     train_res = phase_train(torch)
     phase_small_train(torch)
     cli_res = phase_cli(torch)
+    phase_small_pose(torch)
+    pose_res = phase_pose_cli(torch)
     bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
     c36 = kern["ragged_c36", "float32"]
     routes = slice_res["launches_by_route"]
@@ -1094,7 +1322,11 @@ def main() -> int:
         "launches": train_res["cost_volume_launches_by_route"]["tc"],
         "launches_by_path": {"train_face_256": train_res["cost_volume_launches_by_route"]["tc"],
                              "cli_train_face_256": cli_res["launches_train"]["tc"],
-                             "cli_resume": cli_res["resume"]["launches"]["tc"]},
+                             "cli_resume": cli_res["resume"]["launches"]["tc"],
+                             "cli_train_pose_512x256": pose_res["launches_train"]["tc"],
+                             "pose_teacher": pose_res["launches_teacher"]["tc"]},
+        "pose_shape": {k: cv_res["pose", "float32"][k] for k in cv_keys + (
+            "shape", "bound_share", "previous_design_ms")},
         **{k: cv_main[k] for k in cv_keys},
         **{k: cv_main[k] for k in ("previous_design_ms", "bound_share", "design_bound_ms",
                                    "design_bound_share", "f32_cuda_core_bound_ms")},

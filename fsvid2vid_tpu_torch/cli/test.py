@@ -1,6 +1,6 @@
 """Inference CLI of the PyTorch port (the twin of the JAX package's test.py;
-reference test.py): sequential frame-by-frame face synthesis from a trained
-checkpoint, with an HTML result page.
+reference test.py): sequential frame-by-frame face or pose synthesis from a
+trained checkpoint, with an HTML result page.
 
   python -m fsvid2vid_tpu_torch.cli.test --name face --seq_path ... \\
       --ref_img_path ... --adaptive_spade --warp_ref --spade_combine
@@ -51,7 +51,7 @@ def main(argv=None) -> str:
     from fsvid2vid_tpu_torch.training.state import build_models
     from fsvid2vid_tpu_torch.utils.html import HTML
     from fsvid2vid_tpu_torch.utils.imaging import (
-        save_image, tensor2flow, tensor2im, tensor2label)
+        save_image, tensor2flow, tensor2im, tensor2label, tensor2pose)
 
     if device.type == "cuda":   # f32 products stay f32, as in the JAX package
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -82,6 +82,7 @@ def main(argv=None) -> str:
         out = pipe.step(label)
         visuals = {
             "input_label": (tensor2label(label[0], cfg.label_nc) if cfg.label_nc
+                            else tensor2pose(label[0]) if cfg.is_pose
                             else tensor2im(label[0], normalize=False)),
             "synthesized": tensor2im(out["fake_image"][0].cpu().numpy()),
         }

@@ -1,12 +1,17 @@
 """Training CLI of the PyTorch port (the twin of the JAX package's train.py;
-reference train.py): few-shot vid2vid face training on one CUDA device.
+reference train.py): few-shot vid2vid face or pose training on one CUDA
+device.
 
   python -m fsvid2vid_tpu_torch.cli.train --name face --dataroot datasets/face \\
       --adaptive_spade --warp_ref --spade_combine --batchSize 4
+  python -m fsvid2vid_tpu_torch.cli.train --name pose --dataroot datasets/pose \\
+      --dataset_mode fewshot_pose --adaptive_spade --warp_ref --spade_combine \\
+      --remove_face_labels --add_face_D --batchSize 4
 
 The argparse surface keeps the JAX CLI's flags, flag for flag, plus
 `--device` (CUDA unless named; the tests pass `--device cpu`).  Parsed flags
-override the workload preset.  A flag the port cannot honour yet exits
+override the workload preset that `--dataset_mode` names (fewshot_pose
+-> pose_config, with remat on).  A flag the port cannot honour yet exits
 non-zero and names its ROADMAP.md item; none is dropped silently.
 """
 from __future__ import annotations
@@ -22,10 +27,8 @@ UNPORTED_FLAGS = {
     "coordinator_address": "A.12 (data parallel)",
     "num_processes": "A.12 (data parallel)",
     "process_id": "A.12 (data parallel)",
-    "remat": "A.9 (--remat as torch.utils.checkpoint)",
     "adaptive_conv": "A.2 (generated main-branch conv weights)",
     "refine_face": "A.7 (face refinement)",
-    "add_face_D": "A.8 (the face discriminator)",
 }
 # flags that main() consumes itself and that name no config field
 RUN_FLAGS = {"faithful", "tf_log", "steps_per_epoch", "flownet_ckpt", "vgg_ckpt",
@@ -77,8 +80,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_TTUR", action="store_true")
     p.add_argument("--no_vgg_loss", action="store_true")
     p.add_argument("--remat", action="store_true", default=None,
-                   help="rematerialize generator up blocks in the backward "
-                        "(not ported yet)")
+                   help="recompute the generator's up blocks, flow nets and "
+                        "SC embedders and VGG19 in the backward instead of "
+                        "keeping their activations (torch.utils.checkpoint)")
     p.add_argument("--no_flow_gt", action="store_true")
     p.add_argument("--sn_power_iters", type=int, default=None,
                    help="spectral power iterations per step")
@@ -123,17 +127,20 @@ def _given(value) -> bool:
 
 
 def config_from_args(parser: argparse.ArgumentParser, args, is_train: bool = True):
-    """The run's Config: the face preset with every given flag applied.
-    Exits through `parser.error` on a flag the port cannot honour."""
+    """The run's Config: the preset of --dataset_mode with every given flag
+    applied.  Exits through `parser.error` on a flag the port cannot
+    honour."""
     from fsvid2vid_tpu_torch.config import Config, preset
 
     given = {k: v for k, v in vars(args).items() if _given(v)}
     for flag, item in UNPORTED_FLAGS.items():
         if flag in given:
             parser.error(f"--{flag} is not ported yet (ROADMAP.md {item})")
-    if args.dataset_mode != "fewshot_face":
-        parser.error(f"--dataset_mode {args.dataset_mode}: only fewshot_face is "
-                     "ported (ROADMAP.md A.9: the pose and street datasets)")
+    if args.dataset_mode == "fewshot_street":
+        parser.error("--dataset_mode fewshot_street is not ported yet "
+                     "(ROADMAP.md A.9: the street dataset)")
+    if args.dataset_mode not in ("fewshot_face", "fewshot_pose"):
+        parser.error(f"unknown --dataset_mode {args.dataset_mode}")
     fields = {f.name for f in dataclasses.fields(Config)}
     unknown = set(given) - fields - RUN_FLAGS
     if unknown:   # a flag added to the parser without a meaning here
@@ -142,7 +149,7 @@ def config_from_args(parser: argparse.ArgumentParser, args, is_train: bool = Tru
     overrides["is_train"] = is_train
     if args.faithful:
         overrides["step_mode"] = "faithful"
-    cfg = preset("face", **overrides)
+    cfg = preset(args.dataset_mode.replace("fewshot_", ""), **overrides)
     if args.debug:
         cfg = cfg.debug_shrink()
     return cfg

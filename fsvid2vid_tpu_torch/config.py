@@ -1,8 +1,8 @@
 """Typed configuration for the PyTorch port of the few-shot vid2vid framework.
 
 The port's own copy of fsvid2vid_tpu/config.py, without the fields that only
-select TPU mechanisms (param dtype, remat, mesh, Pallas switch,
-space-to-depth layouts), and with `continue_train`, which the JAX package
+select TPU mechanisms (param dtype, mesh, Pallas switch, space-to-depth
+layouts), and with `continue_train`, which the JAX package
 leaves to the presence of a checkpoint.  `Config.from_json` ignores unknown fields, so a
 config written by the JAX package loads here unchanged.
 
@@ -161,6 +161,9 @@ class Config:
     compute_dtype: str = "bfloat16"  # 'bfloat16': convolutions and matrix
     # products under autocast; parameters, optimizer moments and losses f32
     continue_train: bool = False     # resume from <checkpoints_dir>/<name>/latest
+    remat: bool = False  # recompute the generator's SPADE up blocks, flow
+    # nets and SC embedders and the perceptual loss's VGG19 in the backward
+    # (torch.utils.checkpoint) instead of keeping their activations
 
     # ---- training-only switches of the JAX package ----
     flow_teacher: str = "flownet2"   # 'flownet2' | 'none'
@@ -187,18 +190,28 @@ class Config:
     def width(self) -> int:
         return self.fine_size
 
+    def valid_nc(self, raw_nc: int) -> int:
+        """Channels that use_valid_labels leaves of a raw label of `raw_nc`:
+        the 'open' pose type drops the three DensePose channels."""
+        return raw_nc - 3 if self.is_pose and self.pose_type == "open" else raw_nc
+
     @property
     def gen_input_nc(self) -> int:
-        """Generator semantic-input channels (generator.py:63)."""
-        return self.label_nc if self.label_nc != 0 else self.input_nc
+        """Generator semantic-input channels (generator.py:63): those of the
+        valid labels, which the 'open' pose type strips of the three
+        DensePose channels (input_process.use_valid_labels)."""
+        return self.valid_nc(self.label_nc if self.label_nc != 0 else self.input_nc)
 
     @property
     def netD_input_nc(self) -> int:
-        """Main discriminator input channels (base_model.py:186-188)."""
-        input_nc = self.label_nc if (self.label_nc != 0 and not self.is_pose) else self.input_nc
-        nc = input_nc + self.output_nc + (1 if self.concat_fg_mask_for_D else 0)
+        """Main discriminator input channels (base_model.py:186-188): the
+        target's valid label, and with concat_ref_for_D the reference's raw
+        label, each with an image and, for pose, a foreground mask."""
+        raw_nc = self.label_nc if (self.label_nc != 0 and not self.is_pose) else self.input_nc
+        extra = self.output_nc + (1 if self.concat_fg_mask_for_D else 0)
+        nc = self.valid_nc(raw_nc) + extra
         if self.concat_ref_for_D:
-            nc *= 2
+            nc += raw_nc + extra
         return nc
 
     @property
@@ -309,7 +322,7 @@ def pose_config(**kw) -> Config:
         label_nc=0, input_nc=6, aspect_ratio=0.5,
         adaptive_spade=True, warp_ref=True, spade_combine=True,
         remove_face_labels=True, add_face_D=True,
-        niter=100, niter_single=100,
+        niter=100, niter_single=100, remat=True,
     )
     base.update(kw)
     return Config(**base)

@@ -22,9 +22,10 @@ import numpy as np
 
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.data.face import FewshotFaceDataset
+from fsvid2vid_tpu_torch.data.pose import FewshotPoseDataset
 
-DATASETS = {"fewshot_face": FewshotFaceDataset}
-NOT_PORTED = {"fewshot_pose": "the pose dataset", "fewshot_street": "the street dataset"}
+DATASETS = {"fewshot_face": FewshotFaceDataset, "fewshot_pose": FewshotPoseDataset}
+NOT_PORTED = {"fewshot_street": "the street dataset"}
 
 
 def create_dataset(cfg: Config):

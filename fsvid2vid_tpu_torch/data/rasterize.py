@@ -1,6 +1,7 @@
-"""Face keypoints -> edge maps (the port's copy of the face part of
+"""Keypoints -> label images (the port's copy of
 fsvid2vid_tpu/data/rasterize.py; reference data/keypoint2img.py and the face
-edge drawing of fewshot_face_dataset.get_face_image).
+edge drawing of fewshot_face_dataset.get_face_image): face landmarks to edge
+maps, and OpenPose JSON (body, face and hands) to the RGB pose image.
 
 The reference's scipy `curve_fit` quadratic/linear fits
 (keypoint2img.py:299-321) are closed-form `np.polyfit` fits, the same
@@ -12,18 +13,60 @@ stamping runs only when the caller passes native=False.
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 _PKG = Path(__file__).resolve().parents[1]
 NATIVE_SOURCE = _PKG / "native" / "rasterizer.cc"
 NATIVE_LIBRARY = _PKG / "build" / "librasterizer.so"
+
+
+# ---------------------------------------------------------------------------
+# OpenPose edge topology (keypoint2img.py:205-257)
+# ---------------------------------------------------------------------------
+
+POSE_EDGE_LIST_BASIC = [
+    [17, 15], [15, 0], [0, 16], [16, 18],
+    [0, 1], [1, 8],
+    [1, 2], [2, 3], [3, 4],
+    [1, 5], [5, 6], [6, 7],
+    [8, 9], [9, 10], [10, 11],
+    [8, 12], [12, 13], [13, 14],
+]
+POSE_COLOR_LIST_BASIC = [
+    [153, 0, 153], [153, 0, 102], [102, 0, 153], [51, 0, 153],
+    [153, 0, 51], [153, 0, 0],
+    [153, 51, 0], [153, 102, 0], [153, 153, 0],
+    [102, 153, 0], [51, 153, 0], [0, 153, 0],
+    [0, 153, 51], [0, 153, 102], [0, 153, 153],
+    [0, 102, 153], [0, 51, 153], [0, 0, 153],
+]
+POSE_EDGE_LIST_FEET = [[11, 24], [11, 22], [22, 23], [14, 21], [14, 19], [19, 20]]
+POSE_COLOR_LIST_FEET = [[0, 153, 153]] * 3 + [[0, 0, 153]] * 3
+
+HAND_EDGE_LIST = [
+    [0, 1, 2, 3, 4], [0, 5, 6, 7, 8], [0, 9, 10, 11, 12],
+    [0, 13, 14, 15, 16], [0, 17, 18, 19, 20],
+]
+HAND_COLOR_LIST = [[204, 0, 0], [163, 204, 0], [0, 204, 82], [0, 82, 204],
+                   [163, 0, 204]]
+
+FACE_LIST = [
+    [list(range(0, 17))],
+    [list(range(17, 22))],
+    [list(range(22, 27))],
+    [[28, 31], list(range(31, 36)), [35, 28]],
+    [[36, 37, 38, 39], [39, 40, 41, 36]],
+    [[42, 43, 44, 45], [45, 46, 47, 42]],
+    [list(range(48, 55)), [54, 55, 56, 57, 58, 59, 48]],
+]
 
 
 # 68/83-pt face-landmark part list (fewshot_face_dataset.py:52-59)
@@ -39,6 +82,17 @@ def face_part_list(add_upper_face: bool) -> List[List[List[int]]]:
         [list(range(48, 55)), [54, 55, 56, 57, 58, 59, 48],  # mouth + tongue
          list(range(60, 65)), [64, 65, 66, 67, 60]],
     ]
+
+
+def edge_lists(basic_point_only: bool):
+    """(pose edges, pose colors, hand edges, hand colors, face edges); the
+    feet edges unless basic_point_only."""
+    pose_edges = list(POSE_EDGE_LIST_BASIC)
+    pose_colors = list(POSE_COLOR_LIST_BASIC)
+    if not basic_point_only:
+        pose_edges += POSE_EDGE_LIST_FEET
+        pose_colors += POSE_COLOR_LIST_FEET
+    return pose_edges, pose_colors, HAND_EDGE_LIST, HAND_COLOR_LIST, FACE_LIST
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +229,116 @@ def draw_edge(im: np.ndarray, x, y, bw: int = 1, color=(255, 255, 255),
                     yy = np.clip(ends_y + i, 0, h - 1)
                     xx = np.clip(ends_x + j, 0, w - 1)
                     set_color(im, yy, xx, color)
+
+
+# ---------------------------------------------------------------------------
+# openpose json -> pose image (keypoint2img.py:17-120)
+# ---------------------------------------------------------------------------
+
+def extract_valid_keypoints(pts: np.ndarray, lists) -> np.ndarray:
+    """(P, 3) OpenPose points with confidences -> (P, 2), zero where not
+    confident (face and hand points only where their whole edge is)."""
+    _, _, hand_edge_list, _, face_list = lists
+    p = pts.shape[0]
+    thre = 0.1 if p == 70 else 0.01
+    output = np.zeros((p, 2))
+    if p == 70:
+        for edge_list in face_list:
+            for edge in edge_list:
+                if (pts[edge, 2] > thre).all():
+                    output[edge, :] = pts[edge, :2]
+    elif p == 21:
+        for edge in hand_edge_list:
+            if (pts[edge, 2] > thre).all():
+                output[edge, :] = pts[edge, :2]
+    else:
+        valid = pts[:, 2] > thre
+        output[valid, :] = pts[valid, :2]
+    return output
+
+
+def connect_keypoints(pts, lists, size, basic_point_only, remove_face_labels,
+                      is_train: bool, rng: np.random.RandomState,
+                      native: bool = True):
+    """Draw the body, hand and face edges into an RGB canvas
+    (keypoint2img.py:78-120); in training the line widths are random."""
+    pose_pts, face_pts, hand_pts_l, hand_pts_r = pts
+    w, h = size
+    body_edges = np.zeros((h, w, 3), np.uint8)
+    pose_edge_list, pose_color_list, hand_edge_list, hand_color_list, face_list = lists
+
+    person_h = int(pose_pts[:, 1].max() - pose_pts[:, 1].min())
+    bw = rng.randint(2, 5) if is_train else max(1, person_h // 150)
+    for i, edge in enumerate(pose_edge_list):
+        x, y = pose_pts[edge, 0], pose_pts[edge, 1]
+        if 0 not in x:
+            curve_x, curve_y = interp_points(x, y)
+            draw_edge(body_edges, curve_x, curve_y, bw=bw,
+                      color=pose_color_list[i], draw_end_points=True, native=native)
+
+    if not basic_point_only:
+        bw = rng.randint(1, 3) if is_train else max(1, person_h // 450)
+        for hand_pts in [hand_pts_l, hand_pts_r]:
+            for i, edge in enumerate(hand_edge_list):
+                for j in range(len(edge) - 1):
+                    sub_edge = edge[j:j + 2]
+                    x, y = hand_pts[sub_edge, 0], hand_pts[sub_edge, 1]
+                    if 0 not in x:
+                        line_x, line_y = interp_points(x, y)
+                        draw_edge(body_edges, line_x, line_y, bw=bw,
+                                  color=hand_color_list[i], native=native)
+        edge_len = 2
+        bw = rng.randint(1, 3) if is_train else max(1, person_h // 450)
+        if not remove_face_labels:
+            for edge_list in face_list:
+                for edge in edge_list:
+                    for i in range(0, max(1, len(edge) - 1), edge_len - 1):
+                        sub_edge = edge[i:i + edge_len]
+                        x, y = face_pts[sub_edge, 0], face_pts[sub_edge, 1]
+                        if 0 not in x:
+                            curve_x, curve_y = interp_points(x, y)
+                            draw_edge(body_edges, curve_x, curve_y, bw=bw,
+                                      native=native)
+    return body_edges
+
+
+def read_keypoints(json_input, size, basic_point_only: bool,
+                   remove_face_labels: bool, is_train: bool,
+                   rng: np.random.RandomState, ppl_idx: Optional[int] = None,
+                   native: bool = True):
+    """OpenPose JSON (a path or the text) -> (pose image (H, W, 3) uint8,
+    body points (25, 2), face points (70, 2)) of the tallest person, or of
+    person `ppl_idx` when given (keypoint2img.py:17-53)."""
+    if isinstance(json_input, (str, bytes)) and str(json_input).endswith(".json"):
+        with open(json_input, encoding="utf-8") as f:
+            people = json.load(f)["people"]
+    else:
+        people = json.loads(json_input)["people"]
+
+    lists = edge_lists(basic_point_only)
+    w, h = size
+    pose_img = np.zeros((h, w, 3), np.uint8)
+    pose_keypoints = np.zeros((25, 2))
+    face_keypoints = np.zeros((70, 2))
+    y_len_max = 0
+    if ppl_idx is not None and ppl_idx < len(people):
+        people = [people[ppl_idx]]
+    for person in people:
+        pose_pts = np.array(person["pose_keypoints_2d"]).reshape(25, 3)
+        face_pts = np.array(person["face_keypoints_2d"]).reshape(70, 3)
+        hand_l = np.array(person["hand_left_keypoints_2d"]).reshape(21, 3)
+        hand_r = np.array(person["hand_right_keypoints_2d"]).reshape(21, 3)
+        pts = [extract_valid_keypoints(p, lists)
+               for p in [pose_pts, face_pts, hand_l, hand_r]]
+        y = pts[0][:, 1]
+        y_len = y.max() - y.min()
+        if y_len > y_len_max:
+            y_len_max = y_len
+            pose_img = connect_keypoints(pts, lists, size, basic_point_only,
+                                         remove_face_labels, is_train, rng, native)
+            pose_keypoints = pts[0]
+            face_keypoints = pts[1]
+    return pose_img, pose_keypoints, face_keypoints
 
 
 # ---------------------------------------------------------------------------

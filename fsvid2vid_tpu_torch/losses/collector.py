@@ -1,10 +1,15 @@
-"""Loss assembly for face training (port of fsvid2vid_tpu/losses/collector.py,
-reference models/loss_collector.py), as functions of (config, callables,
-NCHW tensors).  Frame chunks are single frames; the temporal GAN loss reads
-the channel-stacked previous frames.  Loss names follow the reference.
+"""Loss assembly (port of fsvid2vid_tpu/losses/collector.py, reference
+models/loss_collector.py), as functions of (config, callables, NCHW
+tensors).  Frame chunks are single frames; the temporal GAN loss reads the
+channel-stacked previous frames.  Loss names follow the reference.
 
-Not ported: the face-region discriminator (`add_face_D`) and the pose-only
-warp and mask terms (`is_pose`); they raise.
+Pose configurations add the foreground masks to D's input, the face-region
+discriminator on face crops (`add_face_D`), and the body-part warp and mask
+terms; they need the raw (not `use_valid_labels`) pose labels, from which
+the foreground, part and face masks and the face boxes derive.
+
+The adaptive discriminator and the KLD loss are not ported: building their
+networks raises (models/discriminator.py, models/generator.py).
 """
 from __future__ import annotations
 
@@ -15,17 +20,21 @@ import torch
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.losses.gan import (
     feature_matching_loss, gan_loss, l1_loss, masked_l1_loss)
+from fsvid2vid_tpu_torch.models.face_refiner import crop_face_region
+from fsvid2vid_tpu_torch.models.input_process import (
+    get_fg_mask, get_part_mask, smoothed_face_mask)
 from fsvid2vid_tpu_torch.models.vgg import VGG_LOSS_WEIGHTS
+from fsvid2vid_tpu_torch.ops.warp import flow_warp
 
 Tensor = torch.Tensor
 
-def check_supported(cfg: Config):
-    if cfg.add_face_D:
-        raise NotImplementedError("add_face_D (the face-region discriminator) "
-                                  "is not ported")
-    if cfg.is_pose:
-        raise NotImplementedError("the pose losses (body-part warp and mask "
-                                  "terms) are not ported")
+
+def _nhwc(x: Tensor) -> Tensor:
+    return x.movedim(1, -1)
+
+
+def _nchw(x: Tensor) -> Tensor:
+    return x.movedim(-1, 1)
 
 
 def _zero(like: Tensor) -> Tensor:
@@ -67,17 +76,49 @@ def discriminate(cfg: Config, apply_D: Callable, tgt_label, fake_image,
     return [loss_G, loss_feat]
 
 
+def discriminate_face(cfg: Config, apply_Df: Callable, vgg_apply, fake_image,
+                      tgt_label_raw, tgt_image, ref_label, ref_image,
+                      for_discriminator: bool):
+    """Face-region GAN losses (reference loss_collector.py:70-85): the face
+    boxes of the raw target and reference labels cropped from the images,
+    D_f on [reference face, fake or real face], times lambda_face; for G
+    also the L1 and, with the VGG loss on, the VGG loss of the face crops.
+    Returns [Df_real, Df_fake] or [Gf_GAN, Gf_GAN_Feat]."""
+    if not cfg.add_face_D:
+        z = _zero(fake_image)
+        return [z, z]
+    real_region, fake_region = (_nchw(r) for r in crop_face_region(
+        cfg, [_nhwc(tgt_image), _nhwc(fake_image)], _nhwc(tgt_label_raw)))
+    ref_region = _nchw(crop_face_region(cfg, _nhwc(ref_image), _nhwc(ref_label)))
+    losses = discriminate(cfg, apply_Df, ref_region, fake_region, real_region,
+                          None, for_discriminator)
+    losses = [l * cfg.lambda_face for l in losses]
+    if for_discriminator:
+        return losses
+    loss_Gf, loss_Gf_feat = losses
+    loss_Gf_feat = loss_Gf_feat + l1_loss(fake_region.float(),
+                                          real_region.float()) * cfg.lambda_feat
+    if not cfg.no_vgg_loss and vgg_apply is not None:
+        loss_Gf_feat = loss_Gf_feat + vgg_perceptual(
+            vgg_apply, fake_region, real_region) * cfg.lambda_vgg
+    return [loss_Gf, loss_Gf_feat]
+
+
 def compute_gan_losses(cfg: Config, applies: Dict[str, Callable], tgt_label,
                        tgt_image, fake_image, ref_label, ref_image,
-                       for_discriminator: bool, for_temporal: bool = False):
-    """Main (+ zero face) or temporal GAN losses (reference
+                       for_discriminator: bool, for_temporal: bool = False,
+                       tgt_label_raw=None):
+    """Main and face, or temporal, GAN losses (reference
     loss_collector.py:87-120).  fake_image / tgt_image may be [main, raw]
-    pairs (raw may be None); the losses sum over the pair.  Labels are the
-    valid labels; face configurations have no foreground mask to append."""
-    check_supported(cfg)
+    pairs (raw may be None); the losses sum over the pair.  tgt_label is the
+    valid label, ref_label the reference's raw label; pose configurations
+    also need the target's raw label `tgt_label_raw` (the foreground masks
+    appended to D's labels, the face boxes).  Returns [main, main, face,
+    face] losses, or the two temporal ones."""
     if isinstance(fake_image, list):
         results = [compute_gan_losses(cfg, applies, tgt_label, r, f, ref_label,
-                                      ref_image, for_discriminator, for_temporal)
+                                      ref_image, for_discriminator, for_temporal,
+                                      tgt_label_raw)
                    for f, r in zip(fake_image, tgt_image) if f is not None]
         return [sum(item[i] for item in results) for i in range(len(results[0]))]
     if for_temporal:
@@ -86,12 +127,19 @@ def compute_gan_losses(cfg: Config, applies: Dict[str, Callable], tgt_label,
         if not for_discriminator:
             losses = [l * cfg.lambda_temp for l in losses]
         return losses
+    if (cfg.is_pose or cfg.add_face_D) and tgt_label_raw is None:
+        raise ValueError("pose losses need the raw target label (tgt_label_raw)")
+    ref_lbl = ref_label
     if cfg.concat_fg_mask_for_D:
-        raise NotImplementedError("foreground masks for D are not ported")
+        fg = _nchw(get_fg_mask(cfg, _nhwc(tgt_label_raw)))
+        ref_fg = _nchw(get_fg_mask(cfg, _nhwc(ref_label)))
+        tgt_label = torch.cat([tgt_label, fg], 1)
+        ref_lbl = torch.cat([ref_label, ref_fg], 1)
     losses = discriminate(cfg, applies["D"], tgt_label, fake_image, tgt_image,
-                          torch.cat([ref_label, ref_image], 1), for_discriminator)
-    z = _zero(fake_image)
-    return losses + [z, z]
+                          torch.cat([ref_lbl, ref_image], 1), for_discriminator)
+    return losses + discriminate_face(
+        cfg, applies.get("Df"), applies.get("vgg"), fake_image, tgt_label_raw,
+        tgt_image, ref_label, ref_image, for_discriminator)
 
 
 def vgg_perceptual(vgg_apply: Callable, x: Tensor, y: Tensor) -> Tensor:
@@ -126,17 +174,31 @@ def _flow_loss_single(cfg: Config, flow, warped, tgt_image, flow_gt, conf_gt,
 
 
 def compute_flow_losses(cfg: Config, flow, warped_image, tgt_image, flow_gt,
-                        conf_gt, fg_mask):
-    """Flow supervision against the teacher and warp reconstruction
-    (reference loss_collector.py:132-154).  flow / warped_image / flow_gt /
-    conf_gt: [ref, prev] entries, None where absent.  Returns
-    (loss_flow, loss_warp)."""
-    check_supported(cfg)
+                        conf_gt, fg_mask, tgt_label=None, ref_label=None):
+    """Flow supervision against the teacher, warp reconstruction, and for
+    pose the warp consistency of the reference's body-part and foreground
+    masks (reference loss_collector.py:132-154).  flow / warped_image /
+    flow_gt / conf_gt: [ref, prev] entries, None where absent; tgt_label /
+    ref_label: the raw labels, needed for pose.  Returns (loss_flow,
+    loss_warp, body_mask_diff), the last (B, 1, H, W) for pose, else None."""
     lf_r, lw_r = _flow_loss_single(cfg, flow[0], warped_image[0], tgt_image,
                                    flow_gt[0], conf_gt[0], fg_mask)
     lf_p, lw_p = _flow_loss_single(cfg, flow[1], warped_image[1], tgt_image,
                                    flow_gt[1], conf_gt[1], fg_mask)
-    return (lf_r + lf_p) * cfg.lambda_flow, (lw_r + lw_p) * cfg.lambda_flow
+    loss_warp = lw_r + lw_p
+    body_mask_diff = None
+    if cfg.is_train and cfg.is_pose and flow[0] is not None:
+        body_mask = _nchw(get_part_mask(tgt_label[:, 2].float()))
+        ref_body_mask_warp = flow_warp(_nchw(get_part_mask(ref_label[:, 2].float())),
+                                       flow[0])
+        loss_warp = loss_warp + l1_loss(ref_body_mask_warp, body_mask)
+        if cfg.has_fg:
+            fg = _nchw(get_fg_mask(cfg, _nhwc(tgt_label.float())))
+            ref_fg_warp = flow_warp(_nchw(get_fg_mask(cfg, _nhwc(ref_label.float()))),
+                                    flow[0])
+            loss_warp = loss_warp + l1_loss(ref_fg_warp, fg)
+        body_mask_diff = (ref_body_mask_warp - body_mask).abs().sum(1, keepdim=True)
+    return (lf_r + lf_p) * cfg.lambda_flow, loss_warp * cfg.lambda_flow, body_mask_diff
 
 
 def _mask_loss_single(flow_mask, warped, tgt_image):
@@ -152,10 +214,27 @@ def _mask_loss_single(flow_mask, warped, tgt_image):
             + masked_l1_loss(m, torch.ones_like(m), 1 - conf))
 
 
-def compute_mask_losses(cfg: Config, flow_mask, warped_image, tgt_image) -> Tensor:
-    check_supported(cfg)
+def compute_mask_losses(cfg: Config, flow_mask, warped_image, tgt_image,
+                        fake_image=None, tgt_label=None, fg_mask=None,
+                        ref_fg_mask=None, body_mask_diff=None) -> Tensor:
+    """Occlusion-mask losses (reference loss_collector.py:164-188); for pose
+    with warp_ref also: the face comes from the warped reference (and the
+    synthesized face equals it, with spade_combine), the regions that the
+    reference's foreground or body parts do not cover come from the
+    hallucinated image.  tgt_label is the raw label; the masks NCHW."""
     if not cfg.is_train:
         return _zero(tgt_image)
     loss = (_mask_loss_single(flow_mask[0], warped_image[0], tgt_image)
             + _mask_loss_single(flow_mask[1], warped_image[1], tgt_image))
+    if cfg.is_pose and cfg.warp_ref and flow_mask[0] is not None:
+        mask_ref = flow_mask[0].float()
+        zeros, ones = torch.zeros_like(mask_ref), torch.ones_like(mask_ref)
+        face_mask = _nchw(smoothed_face_mask(tgt_label[:, 2].float()))
+        loss = loss + masked_l1_loss(mask_ref, zeros, face_mask)
+        if cfg.spade_combine:
+            loss = loss + masked_l1_loss(fake_image.float(),
+                                         warped_image[0].detach().float(), face_mask)
+        fg_mask_diff = ((ref_fg_mask - fg_mask) > 0).float()
+        loss = loss + masked_l1_loss(mask_ref, ones, fg_mask_diff)
+        loss = loss + masked_l1_loss(mask_ref, ones, body_mask_diff)
     return loss * cfg.lambda_mask

@@ -13,7 +13,9 @@ K > 1).  At eval with K > 1 the attention runs the hand-written CUDA kernel
 use batch statistics and every spectral-norm layer advances its u / v once
 per call, so a module that is called twice in one forward (the shared flow
 network, the up blocks that also produce the raw output) advances twice,
-as in the reference.
+as in the reference.  With cfg.remat the up blocks, the flow nets and the
+SC embedders are recomputed in the backward instead of keeping their
+activations (models/remat.py).
 
 Not ported: K > 1 in train mode (the attention kernel is forward only), the
 VAE branch (use_kld), adaptive_conv, and the face-refinement forward.  They
@@ -31,6 +33,7 @@ from fsvid2vid_tpu_torch.models.embedder import LabelEmbedder, channel_schedule
 from fsvid2vid_tpu_torch.models.flow_generator import FlowGenerator
 from fsvid2vid_tpu_torch.models.layers import (
     SNLinear, SpadeConv2d, SpadeResnetBlock)
+from fsvid2vid_tpu_torch.models.remat import remat
 from fsvid2vid_tpu_torch.ops.attention_kernel import flash_ref_attention
 from fsvid2vid_tpu_torch.ops.image_ops import leaky_relu, upsample_nearest
 from fsvid2vid_tpu_torch.ops.warp import flow_warp
@@ -143,6 +146,13 @@ class FewShotGenerator(nn.Module):
                     self.img_ref_embedding if cfg.prev_embedding_is_shared
                     else LabelEmbedder(cfg.output_nc + 1, cfg.sc_arch,
                                        cfg.ngf, nd))
+
+    def _call(self, module: nn.Module, *args):
+        """module(*args), recomputed in the backward when cfg.remat is on and
+        the module trains."""
+        if self.training and self.cfg.remat:
+            return remat(module, *args, modules=[module])
+        return module(*args)
 
     def hidden_ncs(self, i: int) -> List[int]:
         """SPADE modulation-map channels at layer i."""
@@ -323,20 +333,21 @@ class FewShotGenerator(nn.Module):
             # one network on same-shaped inputs: run ref and prev as one 2B
             # batch (at eval only: batch statistics would mix the two)
             b = label.shape[0]
-            flow2, mask2 = self.flow_network_ref(
-                torch.cat([label, label]), torch.cat([label_ref, prev_label]),
-                torch.cat([img_ref, prev_img]))
+            flow2, mask2 = self._call(
+                self.flow_network_ref, torch.cat([label, label]),
+                torch.cat([label_ref, prev_label]), torch.cat([img_ref, prev_img]))
             warp2 = flow_warp(torch.cat([img_ref[:, :3], prev_img[:, -3:]]), flow2)
             flow = [flow2[:b], flow2[b:]]
             flow_mask = [mask2[:b], mask2[b:]]
             img_warp = [warp2[:b], warp2[b:]]
         else:
             if self.warp_ref:
-                flow[0], flow_mask[0] = self.flow_network_ref(label, label_ref, img_ref)
+                flow[0], flow_mask[0] = self._call(
+                    self.flow_network_ref, label, label_ref, img_ref)
                 img_warp[0] = flow_warp(img_ref, flow[0])[:, :3]
             if do_prev:
-                flow[1], flow_mask[1] = self.flow_network_temp(
-                    label, prev_label, prev_img)
+                flow[1], flow_mask[1] = self._call(
+                    self.flow_network_temp, label, prev_label, prev_img)
                 img_warp[1] = flow_warp(prev_img[:, -3:], flow[1])
         if cfg.spade_combine:
             if self.warp_ref:
@@ -353,13 +364,13 @@ class FewShotGenerator(nn.Module):
             return encoded_label
         if cfg.prev_embedding_is_shared and ds_ref[0] is not None and ds_ref[1] is not None:
             b = ds_ref[0].shape[0]
-            both = self.img_ref_embedding(torch.cat([ds_ref[0], ds_ref[1]]))
+            both = self._call(self.img_ref_embedding, torch.cat([ds_ref[0], ds_ref[1]]))
             enc_ref = [e[:b] for e in both]
             enc_prev = [e[b:] for e in both]
         else:
-            enc_ref = (self.img_ref_embedding(ds_ref[0])
+            enc_ref = (self._call(self.img_ref_embedding, ds_ref[0])
                        if ds_ref[0] is not None else None)
-            enc_prev = (self.img_prev_embedding(ds_ref[1])
+            enc_prev = (self._call(self.img_prev_embedding, ds_ref[1])
                         if ds_ref[1] is not None else None)
         out = list(encoded_label)
         for i in range(cfg.n_sc_layers):
@@ -381,10 +392,10 @@ class FewShotGenerator(nn.Module):
             if add_raw and i < cfg.n_sc_layers:
                 if i == cfg.n_sc_layers - 1:
                     x_raw = x
-                x_raw = block(x_raw, raw_label[i], nw)
+                x_raw = self._call(block, x_raw, raw_label[i], nw)
                 if i > 0:
                     x_raw = upsample_nearest(x_raw)
-            x = block(x, encoded_label[i], nw)
+            x = self._call(block, x, encoded_label[i], nw)
             if i > 0:
                 x = upsample_nearest(x)
         img = torch.tanh(self.conv_img(leaky_relu(x)))

@@ -3,25 +3,46 @@ fsvid2vid_tpu/models/input_process.py, reference input_process.py).
 
 Channel-last like the public layout of the pipeline and of the train step.
 For face and street configurations `use_valid_labels` is the identity and
-there is no foreground mask.
+there is no foreground mask.  Pose labels carry the DensePose part index in
+channel 2, scaled to [-1, 1]; the body-part and face masks derive from it.
 """
 from __future__ import annotations
 
 import torch
 
 from fsvid2vid_tpu_torch.config import Config
-from fsvid2vid_tpu_torch.ops.image_ops import max_pool
+from fsvid2vid_tpu_torch.ops.image_ops import avg_pool, max_pool
 
+# DensePose's 25 part ids grouped into 9 body parts (input_process.py:65)
+PART_GROUPS = [[0], [1, 2], [3, 4], [5, 6], [7, 9, 8, 10], [11, 13, 12, 14],
+               [15, 17, 16, 18], [19, 21, 20, 22], [23, 24]]
 FACE_PART_IDS = (23, 24)   # DensePose face parts
+
+
+def _part_is(part: torch.Tensor, ids) -> torch.Tensor:
+    m = torch.zeros(part.shape, dtype=torch.bool, device=part.device)
+    for j in ids:
+        m = m | ((part > j - 0.1) & (part < j + 0.1))
+    return m
 
 
 def get_face_mask(pose: torch.Tensor) -> torch.Tensor:
     """Face mask from a DensePose part channel, (..., H, W) -> float."""
+    return _part_is((pose / 2 + 0.5) * 24, FACE_PART_IDS).float()
+
+
+def get_part_mask(pose: torch.Tensor) -> torch.Tensor:
+    """9 body-part masks from a DensePose part channel (reference
+    input_process.py:64-80): (..., H, W) -> (..., H, W, 9) float."""
     part = (pose / 2 + 0.5) * 24
-    m = torch.zeros(pose.shape, dtype=torch.bool, device=pose.device)
-    for j in FACE_PART_IDS:
-        m = m | ((part > j - 0.1) & (part < j + 0.1))
-    return m.float()
+    return torch.stack([_part_is(part, g) for g in PART_GROUPS], -1).float()
+
+
+def smoothed_face_mask(pose: torch.Tensor) -> torch.Tensor:
+    """The face mask blurred by a 15 x 15 average pool whose zero padding
+    counts (reference loss_collector.py:177-178): (B, H, W) -> (B, H, W, 1)."""
+    face = get_face_mask(pose)[:, None]
+    return avg_pool(face, 15, 1, 7).permute(0, 2, 3, 1)
 
 
 def use_valid_labels(cfg: Config, pose):

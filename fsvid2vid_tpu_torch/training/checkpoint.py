@@ -3,7 +3,7 @@ reference base_model.py:51-93 and models/models.py:48-62), with torch.save
 in place of orbax.
 
 The full train state is saved, as the JAX package saves it: the state dicts
-of G, D and the temporal D (spectral u / v and batch-norm statistics are
+of G, D, the temporal D and the face D (spectral u / v and batch-norm statistics are
 buffers, so they are in them), both Adam states, the step, the VGG19
 weights, and the (epoch, iter) cursor that replaces the reference's
 `iter.txt`.  Layout: `<checkpoints_dir>/<name>/{latest,epoch_N}`, one file
@@ -20,7 +20,7 @@ import torch
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
 
-NETWORKS = {"G": "netG", "D": "netD", "DT": "netDT", "vgg": "vgg"}
+NETWORKS = {"G": "netG", "D": "netD", "DT": "netDT", "Df": "netDf", "vgg": "vgg"}
 
 
 def ckpt_dir(cfg: Config) -> str:

@@ -6,7 +6,8 @@ flow ground truth,
     (epoch > niter_single), and
   * the flow to the first reference image when warp_ref,
 
-on the real images (face, street), with the confidence
+on the real images (face, street) or on the first three channels of the raw
+label map (pose: the DensePose IUV channels), with the confidence
 (||im1 - warp(im2, flow)||^2 < 0.02).  Images are resized bilinearly to
 multiples of 64 for the network and the flows scaled back.  Always f32 and
 without gradient.  The pretrained checkpoint is not bundled: without it the
@@ -58,9 +59,6 @@ class FlowTeacher:
     def __init__(self, cfg: Config, device=None,
                  generator: Optional[torch.Generator] = None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None):
-        if cfg.is_pose:
-            raise NotImplementedError("the pose teacher (flow on the label "
-                                      "map) is not ported")
         self.device = resolve_device(device)
         model = build_on_device(FlowNet2, self.device)
         if state_dict is not None:
@@ -73,8 +71,9 @@ class FlowTeacher:
 
     def __call__(self, cfg: Config, seq: Dict, epoch: int):
         to = dict(device=self.device, dtype=torch.float32)
-        image_now = torch.as_tensor(seq["tgt_image"], **to)[..., :3]   # (B, T, H, W, 3)
-        image_ref = torch.as_tensor(seq["ref_images"], **to)[:, 0, ..., :3]
+        now, ref = ("tgt_label", "ref_labels") if cfg.is_pose else ("tgt_image", "ref_images")
+        image_now = torch.as_tensor(seq[now], **to)[..., :3]    # (B, T, H, W, 3)
+        image_ref = torch.as_tensor(seq[ref], **to)[:, 0, ..., :3]
         flow_prev = conf_prev = flow_ref = conf_ref = None
         if not cfg.is_train or epoch > cfg.niter_single:
             image_prev = torch.cat([image_now[:, 0:1], image_now[:, :-1]], 1)

@@ -3,7 +3,9 @@ reference models/models.py create_model + base_model.define_networks).
 
 Every network training can need is built up front: the generator (with its
 temporal flow branch), the image discriminator, the temporal discriminator
-when n_frames_G > 1, and the frozen VGG19 of the perceptual loss.  The train
+when n_frames_G > 1, the face-region discriminator with add_face_D (on
+face_size x face_size crops of [reference face, face], 2 x output_nc
+channels), and the frozen VGG19 of the perceptual loss.  The train
 state owns them and two Adam optimizers with the reference's two-time-scale
 rule (G lr / 2, D lr * 2, betas (0, beta2); `no_TTUR`: lr, (beta1, 0.999))
 and its linear decay after `niter` epochs.  Parameters, optimizer moments,
@@ -19,7 +21,6 @@ import torch.nn as nn
 
 from fsvid2vid_tpu_torch import resolve_device
 from fsvid2vid_tpu_torch.config import Config
-from fsvid2vid_tpu_torch.losses.collector import check_supported
 from fsvid2vid_tpu_torch.models import (
     build_on_device, init_plain_convs, init_weights)
 from fsvid2vid_tpu_torch.models.discriminator import MultiscaleDiscriminator
@@ -35,9 +36,10 @@ class ModelBundle:
     netD: Optional[MultiscaleDiscriminator]
     netDT: Optional[MultiscaleDiscriminator]
     vgg: Optional[Vgg19Features]
+    netDf: Optional[MultiscaleDiscriminator] = None
 
     def discriminators(self):
-        return [d for d in (self.netD, self.netDT) if d is not None]
+        return [d for d in (self.netD, self.netDT, self.netDf) if d is not None]
 
 
 def build_models(cfg: Config, device=None,
@@ -49,8 +51,6 @@ def build_models(cfg: Config, device=None,
     pretrained weights."""
     if cfg.refine_face:
         raise NotImplementedError("refine_face is not ported")
-    if cfg.is_train or cfg.finetune:
-        check_supported(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
@@ -63,7 +63,7 @@ def build_models(cfg: Config, device=None,
         return init_weights(net, generator, cfg.init_variance).train()
 
     netG = make(lambda: FewShotGenerator(cfg))
-    netD = netDT = vgg = None
+    netD = netDT = netDf = vgg = None
     if cfg.is_train or cfg.finetune:
         feat = not cfg.no_ganFeat_loss
         netD = make(lambda: MultiscaleDiscriminator(
@@ -74,10 +74,14 @@ def build_models(cfg: Config, device=None,
             netDT = make(lambda: MultiscaleDiscriminator(
                 cfg.output_nc * cfg.tD, cfg.ndf, cfg.n_layers_D, cfg.norm_D,
                 "n_layers", 1, feat))
+        if cfg.add_face_D:
+            netDf = make(lambda: MultiscaleDiscriminator(
+                cfg.output_nc * 2, cfg.ndf, cfg.n_layers_D, cfg.norm_D,
+                "n_layers", 1, feat))
         if not cfg.no_vgg_loss:
             vgg = init_plain_convs(build_on_device(Vgg19Features, device), generator)
             vgg.eval().requires_grad_(False)
-    return ModelBundle(cfg, netG, netD, netDT, vgg)
+    return ModelBundle(cfg, netG, netD, netDT, vgg, netDf)
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:

@@ -18,6 +18,8 @@ networks and the losses run NCHW.
 `compute_dtype="bfloat16"` runs the networks' convolutions and matrix
 products in bf16 under autocast; parameters, optimizer moments, norm
 statistics, spectral sigma, the VGG features and every loss stay f32.
+With cfg.remat, VGG19 and the generator's up blocks, flow nets and SC
+embedders are recomputed in the backward (models/remat.py).
 
 The two steps differ as in the JAX package:
   * `train_step` runs the generator once; its detached outputs feed the D
@@ -42,6 +44,7 @@ from fsvid2vid_tpu_torch.losses import collector as lc
 from fsvid2vid_tpu_torch.models.generator import pick_ref
 from fsvid2vid_tpu_torch.models.input_process import (
     combine_fg_mask, get_fg_mask, use_valid_labels)
+from fsvid2vid_tpu_torch.models.remat import remat
 from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
 
 Tensor = torch.Tensor
@@ -63,7 +66,7 @@ def init_prevs(cfg: Config, batch) -> Dict[str, Tensor]:
     """Zero previous-frames buffers for `batch`."""
     label = batch["tgt_label"]
     b, h, w = label.shape[:3]
-    cl = label.shape[-1] if cfg.label_nc == 0 else cfg.label_nc
+    cl = cfg.valid_nc(label.shape[-1] if cfg.label_nc == 0 else cfg.label_nc)
     n = cfg.n_frames_G - 1
     mk = lambda c: torch.zeros(b, h, w, c, dtype=torch.float32, device=label.device)
     return {"label": mk(cl * n), "real": mk(3 * n), "fake": mk(3 * n)}
@@ -130,13 +133,14 @@ def generate_images(cfg: Config, models: ModelBundle, batch, prevs,
     return outputs, masks, refs
 
 
-def _applies(models: ModelBundle, with_vgg: bool):
-    applies = {"D": models.netD, "DT": models.netDT, "vgg": None}
+def _applies(cfg: Config, models: ModelBundle, with_vgg: bool):
+    applies = {"D": models.netD, "DT": models.netDT, "Df": models.netDf, "vgg": None}
     if with_vgg and models.vgg is not None:
         def vgg_apply(x):   # f32 outside autocast, as the JAX step runs it
             with torch.autocast(x.device.type, enabled=False):
                 return models.vgg(x.float())
-        applies["vgg"] = vgg_apply
+        applies["vgg"] = ((lambda x: remat(vgg_apply, x)) if cfg.remat
+                          else vgg_apply)
     return applies
 
 
@@ -148,7 +152,7 @@ def _temporal_stacks(batch_n, prevs, fake_image):
 
 def _g_losses(cfg, models, batch_n, prevs, flags, outputs, masks, refs):
     """Generator-side losses of the generated outputs."""
-    applies = _applies(models, with_vgg=True)
+    applies = _applies(cfg, models, with_vgg=True)
     tgt_image = batch_n["tgt_image"]
     fake_image, fake_raw = outputs["fake_image"], outputs["fake_raw"]
     zero = torch.zeros((), device=tgt_image.device)
@@ -166,19 +170,20 @@ def _g_losses(cfg, models, batch_n, prevs, flags, outputs, masks, refs):
      losses["Gf_GAN_Feat"]) = lc.compute_gan_losses(
         cfg, applies, outputs["tgt_label_valid"], [tgt_image, tgt_image * fg_union],
         [fake_image, fake_raw], refs["label"], refs["image"],
-        for_discriminator=False)
+        for_discriminator=False, tgt_label_raw=batch_n["tgt_label"])
     losses["G_VGG"] = lc.compute_vgg_losses(cfg, applies["vgg"], fake_image,
                                             fake_raw, tgt_image, fg_union)
-    losses["F_Flow"], losses["F_Warp"] = lc.compute_flow_losses(
+    losses["F_Flow"], losses["F_Warp"], body_mask_diff = lc.compute_flow_losses(
         cfg, outputs["flow"], outputs["warped"], tgt_image, batch_n["flow_gt"],
-        batch_n["conf_gt"], masks["fg"])
-    losses["F_Mask"] = lc.compute_mask_losses(cfg, outputs["flow_mask"],
-                                              outputs["warped"], tgt_image)
+        batch_n["conf_gt"], masks["fg"], batch_n["tgt_label"], refs["label"])
+    losses["F_Mask"] = lc.compute_mask_losses(
+        cfg, outputs["flow_mask"], outputs["warped"], tgt_image, fake_image,
+        batch_n["tgt_label"], masks["fg"], masks["ref_fg"], body_mask_diff)
     return sum(losses.values()), losses
 
 
 def _d_losses(cfg, models, generated, batch_n, prevs, flags, outputs, masks, refs):
-    applies = _applies(models, with_vgg=False)
+    applies = _applies(cfg, models, with_vgg=False)
     tgt_image = batch_n["tgt_image"]
     fake_image, fake_raw = generated["fake_image"], generated["fake_raw"]
     zero = torch.zeros((), device=tgt_image.device)
@@ -188,7 +193,7 @@ def _d_losses(cfg, models, generated, batch_n, prevs, flags, outputs, masks, ref
      losses["Df_fake"]) = lc.compute_gan_losses(
         cfg, applies, outputs["tgt_label_valid"], [tgt_image, tgt_image * fg_union],
         [fake_image, fake_raw], refs["label"], refs["image"],
-        for_discriminator=True)
+        for_discriminator=True, tgt_label_raw=batch_n["tgt_label"])
     if cfg.lambda_temp > 0 and flags.temporal_active:
         tgt_all, fake_all = _temporal_stacks(batch_n, prevs, fake_image)
         losses["DT_real"], losses["DT_fake"] = lc.compute_gan_losses(
@@ -207,7 +212,8 @@ def _prepare(cfg, state: TrainState, batch, flags: StepFlags):
     for d in models.discriminators():
         d.train()
     gt = lambda key: [_nchw(x) for x in batch.get(key, [None, None])]
-    batch_n = dict(tgt_image=_nchw(batch["tgt_image"]), flow_gt=gt("flow_gt"),
+    batch_n = dict(tgt_image=_nchw(batch["tgt_image"]),
+                   tgt_label=_nchw(batch["tgt_label"]), flow_gt=gt("flow_gt"),
                    conf_gt=gt("conf_gt"))
     return models, batch_n
 

@@ -121,7 +121,7 @@ class Trainer:
             # base_model.py:57-66)
             stored = ckpt_lib.load(cfg, base_dir=cfg.load_pretrain)
             if stored is not None:
-                ckpt_lib.restore_models(self.models, stored, keys=("G", "D", "DT"))
+                ckpt_lib.restore_models(self.models, stored, keys=("G", "D", "DT", "Df"))
                 self.log(f"warm-started weights from {cfg.load_pretrain}")
             else:
                 self.log(f"WARNING: --load_pretrain dir {cfg.load_pretrain} "

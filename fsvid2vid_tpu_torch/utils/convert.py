@@ -136,7 +136,8 @@ def _convert(leaf: str, value, is_sn: bool = False):
 
 def discriminator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The port's MultiscaleDiscriminator state_dict from JAX variables
-    ({"params", "spectral"}).  flax `discriminator_K/modelN_conv` is the
+    ({"params", "spectral"}); the image, temporal and face discriminators
+    (params_D["D"], ["DT"], ["Df"]) share the naming.  flax `discriminator_K/modelN_conv` is the
     reference's `discriminator_K.modelN.0` for the first and the last layer
     and `.modelN.0.0` for the middle ones, whose norm is `.modelN.0.1`."""
     sn_modules = {path[:-1] for path, _ in _leaves(variables.get("spectral", {}))}

@@ -38,6 +38,15 @@ def tensor2im(arr, normalize: bool = True, tile: bool = False):
     return out.astype(np.uint8)
 
 
+def tensor2pose(arr, tile: bool = False):
+    """6-channel pose labels (..., H, W, 6) in [-1, 1] -> uint8 RGB of the
+    DensePose channels beside the OpenPose rendering."""
+    if arr is None:
+        return None
+    arr = np.asarray(arr, np.float32)
+    return tensor2im(np.concatenate([arr[..., :3], arr[..., 3:]], axis=-2), tile=tile)
+
+
 def tensor2label(arr, n_label: int) -> Optional[np.ndarray]:
     """One-hot or index label map (HWC) -> colorized uint8 RGB."""
     if arr is None:

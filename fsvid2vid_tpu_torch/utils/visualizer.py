@@ -16,7 +16,7 @@ import torch
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.utils.html import HTML
 from fsvid2vid_tpu_torch.utils.imaging import (
-    save_image, tensor2flow, tensor2im, tensor2label)
+    save_image, tensor2flow, tensor2im, tensor2label, tensor2pose)
 
 
 def _host(x):
@@ -37,6 +37,9 @@ def display_visuals(cfg: Config, vis) -> Dict[str, Optional[np.ndarray]]:
     if cfg.label_nc > 0:
         out["input_label"] = tensor2label(vis["tgt_label"][0], cfg.label_nc)
         out["ref_label"] = tensor2label(vis["ref_label"][0], cfg.label_nc)
+    elif cfg.is_pose:
+        out["input_label"] = tensor2pose(vis["tgt_label"], tile=True)
+        out["ref_label"] = tensor2pose(vis["ref_label"], tile=True)
     else:
         out["input_label"] = tensor2im(vis["tgt_label"], tile=True)
         out["ref_label"] = tensor2im(vis["ref_label"], tile=True)

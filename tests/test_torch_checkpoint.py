@@ -1,19 +1,22 @@
 """The port's checkpoints (fsvid2vid_tpu_torch/training/checkpoint.py) on the
 CPU in f32, at a tiny size: what a save holds and a restore gives back,
 resume in a fresh trainer bitwise equal to a run without the interruption,
-restores of subsets, and writes that never leave a truncated file."""
+restores of subsets, and writes that never leave a truncated file; a pose
+run with the face discriminator resumes bitwise too, Df's weights and its
+share of the D Adam state included."""
 import os
 
 import numpy as np
 import pytest
 import torch
 
-from fsvid2vid_tpu_torch.config import face_config
+from fsvid2vid_tpu_torch.config import face_config, pose_config
 from fsvid2vid_tpu_torch.training import checkpoint as ckpt
 from fsvid2vid_tpu_torch.training import state as tstate
 from fsvid2vid_tpu_torch.training import step as tstep
 from fsvid2vid_tpu_torch.training.trainer import Trainer
 from tests.test_torch_data import few_threads  # noqa: F401 (autouse)
+from tests.test_torch_pose_losses import pose_label
 
 B, SIZE = 2, 32
 
@@ -124,14 +127,14 @@ class Interrupted(Exception):
     pass
 
 
-def run(cfg, stop_at=None):
+def run(cfg, stop_at=None, make_sequence=sequence):
     """fit() over 3 sequences an epoch (epoch 2 is temporal, 2 frames);
     with stop_at=(epoch, idx) the data stops with an exception there."""
     def data(epoch, n_frames_total):
         for idx in range(3):
             if (epoch, idx) == stop_at:
                 raise Interrupted
-            yield sequence(100 * epoch + idx, n_frames_total)
+            yield make_sequence(100 * epoch + idx, n_frames_total)
     trainer = Trainer(cfg, log_fn=lambda m: None, device="cpu")
     trainer.setup()
     try:
@@ -160,6 +163,47 @@ def test_resume_mid_epoch_is_bitwise_equal(tmp_path):
     fresh = Trainer(tiny_cfg(tmp_path / "b", **kw), log_fn=lambda m: None, device="cpu")
     fresh.setup()
     assert fresh.start_epoch == 1 and fresh.state.step == 0
+
+
+def pose_cfg(tmp_path, **kw):
+    return pose_config(name="run", ngf=4, nff=4, ndf=4, fine_size=SIZE, load_size=SIZE,
+                       n_blocks_F=2, n_downsample_G=3, n_adaptive_layers=2, batch_size=B,
+                       compute_dtype="float32", checkpoints_dir=str(tmp_path),
+                       no_flow_gt=True, print_freq=0, display_freq=0, **kw)
+
+
+def pose_sequence(seed, t=1):
+    """Pose labels (B, t, 2 SIZE, SIZE, 6) with body and face parts."""
+    rng = np.random.RandomState(seed)
+    h, w = 2 * SIZE, SIZE
+    img = lambda *s: np.tanh(rng.randn(*s)).astype(np.float32)
+    return dict(tgt_label=np.stack([pose_label(rng, B, h, w, shift=i) for i in range(t)], 1),
+                tgt_image=img(B, t, h, w, 3),
+                ref_labels=pose_label(rng, B, h, w, shift=2)[:, None],
+                ref_images=img(B, 1, h, w, 3))
+
+
+def test_pose_run_with_face_d_resumes_bitwise(tmp_path):
+    """The mid-epoch resume of test_resume_mid_epoch_is_bitwise_equal on a
+    pose configuration with the face discriminator and remat: Df's weights,
+    spectral u / v and Adam moments are saved and come back."""
+    kw = dict(niter=2, niter_decay=0, niter_single=1, save_latest_freq=2 * B,
+              no_vgg_loss=True)
+    whole = run(pose_cfg(tmp_path / "a", **kw), make_sequence=pose_sequence)
+    run(pose_cfg(tmp_path / "b", **kw), stop_at=(2, 2), make_sequence=pose_sequence)
+    stored = ckpt.load(pose_cfg(tmp_path / "b", **kw))
+    assert stored["cursor"] == {"epoch": 2, "epoch_iter": 2}
+    assert "Df" in stored["networks"]
+    resumed = run(pose_cfg(tmp_path / "b", continue_train=True, **kw),
+                  make_sequence=pose_sequence)
+    assert resumed.cfg.remat and resumed.cfg.add_face_D
+    assert resumed.state.step == whole.state.step == 3 + 6
+    names = everything(resumed.state)
+    assert any(k.startswith("Df.") and k.endswith("weight_u") for k in names)
+    df = {id(p) for p in resumed.models.netDf.parameters()}
+    moments = [m for p, m in resumed.state.opt_D.state.items() if id(p) in df]
+    assert len(moments) == len(df) and all("exp_avg_sq" in m for m in moments)
+    assert_equal_state(resumed.state, whole.state)
 
 
 def test_inference_restore_drops_the_discriminators(tmp_path):

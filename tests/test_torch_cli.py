@@ -1,8 +1,10 @@
 """The port's train and test CLIs on the CPU: `python -m
 fsvid2vid_tpu_torch.cli.train --device cpu` at tests/test_cli.py's tiny
 flags on a synthetic face dataset, then `python -m
-fsvid2vid_tpu_torch.cli.test` on its checkpoint; every flag the port cannot
-honour yet, and a missing card, exit non-zero with a message naming why."""
+fsvid2vid_tpu_torch.cli.test` on its checkpoint; the same for pose
+(`--dataset_mode fewshot_pose` with the face discriminator and remat) on a
+synthetic pose dataset; every flag the port cannot honour yet, and a missing
+card, exit non-zero with a message naming why."""
 import os
 import subprocess
 import sys
@@ -93,8 +95,7 @@ def test_continue_train_resumes_in_process(data, tmp_path):
 UNPORTED = [
     (["--distributed"], "A.12"), (["--coordinator_address", "h:1"], "A.12"),
     (["--num_processes", "2"], "A.12"), (["--process_id", "1"], "A.12"),
-    (["--remat"], "A.9"), (["--adaptive_conv"], "A.2"), (["--refine_face"], "A.7"),
-    (["--add_face_D"], "A.8"), (["--dataset_mode", "fewshot_pose"], "A.9"),
+    (["--adaptive_conv"], "A.2"), (["--refine_face"], "A.7"),
     (["--dataset_mode", "fewshot_street"], "A.9"),
 ]
 
@@ -108,6 +109,56 @@ def test_unported_flags_exit_naming_their_item(data, tmp_path, capsys, flags, it
     assert e.value.code != 0
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
     assert not os.path.exists(os.path.join(str(tmp_path), "smoke"))
+
+
+# flags the port refused until the pose slice, and the config field each sets
+POSE_FLAGS = {"remat": (["--remat"], "remat"),
+              "add_face_D": (["--add_face_D"], "add_face_D"),
+              "fewshot_pose": (["--dataset_mode", "fewshot_pose"], "is_pose")}
+
+
+@pytest.mark.parametrize("name", list(POSE_FLAGS))
+def test_pose_flags_are_accepted_and_reach_the_config(data, tmp_path, name):
+    flags, field = POSE_FLAGS[name]
+    parser = cli_train.build_arg_parser()
+    cfg = cli_train.config_from_args(parser, parser.parse_args(
+        train_argv(data, str(tmp_path), "--device", "cpu") + flags))
+    assert getattr(cfg, field) is True
+    if name == "fewshot_pose":   # the pose preset: 6-channel labels, remat on
+        assert (cfg.input_nc, cfg.aspect_ratio, cfg.remat, cfg.add_face_D) == (6, 0.5, True, True)
+    else:
+        assert not cfg.is_pose
+
+
+POSE = ["--dataset_mode", "fewshot_pose", "--adaptive_spade", "--warp_ref",
+        "--spade_combine", "--remove_face_labels", "--add_face_D", "--remat"]
+
+
+def test_pose_train_then_test(tmp_path):
+    """Two epochs of pose training (the second temporal) on worker threads,
+    the face D's losses in the log, then 2 frames of inference."""
+    from fsvid2vid_tpu_torch.data.synthetic import write_pose_dataset
+    data = write_pose_dataset(str(tmp_path / "pose"), seed=1, n_seqs=2, n_frames=4)
+    ckpt = str(tmp_path / "ckpt")
+    run = cli_train.main(["--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpt,
+                          "--batchSize", "2", "--niter", "2", "--niter_decay", "0",
+                          "--niter_single", "1", "--no_flow_gt", "--steps_per_epoch", "2",
+                          "--num_workers", "2", "--display_freq", "2", "--print_freq", "2",
+                          "--device", "cpu"] + POSE + TINY)
+    assert run.cfg.is_pose and run.cfg.remat and run.cfg.add_face_D
+    assert sorted(run.trainer.epoch_metrics) == [1, 2]
+    for metrics in run.trainer.epoch_metrics.values():
+        assert metrics["Df_real"] > 0 and metrics["Gf_GAN"] > 0
+    assert os.path.exists(os.path.join(ckpt, "pose", "latest"))
+    web = cli_test.main(["--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpt,
+                         "--results_dir", str(tmp_path / "results"), "--device", "cpu",
+                         "--how_many", "2",
+                         "--seq_path", os.path.join(data, "test_images", "0001/"),
+                         "--ref_img_path", os.path.join(data, "test_images", "0002/")]
+                        + POSE + TINY)
+    images = os.listdir(os.path.join(web, "images"))
+    assert sum("synthesized" in i for i in images) == 2
+    assert sum("input_label" in i for i in images) == 2
 
 
 def test_finetune_exits_naming_its_item(capsys):

@@ -263,7 +263,9 @@ print(" ".join(names))
         "ops.cuda_build", "ops.cost_volume", "ops.attention_kernel",
         "models.flownet.flownet2", "models.discriminator", "models.vgg",
         "losses.gan", "losses.collector", "training.flow_teacher",
-        "training.state", "training.step")} <= names
+        "training.state", "training.step", "ops.crop", "models.face_refiner",
+        "models.remat", "data.pose", "data.synthetic", "data.rasterize",
+        "data.loader")} <= names
 
 
 def test_entry_points_run_on_cuda_unless_cpu_is_named():

@@ -23,6 +23,7 @@ from fsvid2vid_tpu_torch.losses import collector as tlc
 from fsvid2vid_tpu_torch.losses import gan as tgan
 from fsvid2vid_tpu_torch.models.discriminator import MultiscaleDiscriminator
 from fsvid2vid_tpu_torch.models.vgg import VGG_LOSS_TAPS, Vgg19Features
+from fsvid2vid_tpu_torch.training.state import build_models
 from fsvid2vid_tpu_torch.utils.convert import (
     discriminator_state_dict_from_jax, vgg_state_dict_from_jax)
 from tests.test_networks import tiny_face_cfg
@@ -235,14 +236,15 @@ def test_flow_and_mask_losses(rng, prev):
     lbl = jnp.zeros((B, H, W, cfg.gen_input_nc))
     wf, ww, _ = jlc.compute_flow_losses(cfg, J(flow), J(warped), jnp.asarray(tgt),
                                         J(flow_gt), J(conf_gt), None, lbl, lbl)
-    gf, gw = tlc.compute_flow_losses(tcfg, T(flow), T(warped), nchw(tgt),
-                                     T(flow_gt), T(conf_gt), None)
+    gf, gw, no_diff = tlc.compute_flow_losses(tcfg, T(flow), T(warped), nchw(tgt),
+                                              T(flow_gt), T(conf_gt), None)
+    assert no_diff is None   # body-part masks are a pose term
     close(gf, wf)
     close(gw, ww)
     assert float(gf) > 0 and float(gw) > 0
     # without a teacher there is no flow loss, but the warp loss stays
-    gf0, gw0 = tlc.compute_flow_losses(tcfg, T(flow), T(warped), nchw(tgt),
-                                       [None, None], [None, None], None)
+    gf0, gw0, _ = tlc.compute_flow_losses(tcfg, T(flow), T(warped), nchw(tgt),
+                                          [None, None], [None, None], None)
     assert float(gf0) == 0.0
     close(gw0, ww)
     wm = jlc.compute_mask_losses(cfg, J(mask), None, J(warped), lbl, jnp.asarray(tgt),
@@ -252,12 +254,15 @@ def test_flow_and_mask_losses(rng, prev):
     assert float(gm) > 0
 
 
-@pytest.mark.parametrize("kw", [dict(add_face_D=True), dict(is_pose=True)])
+@pytest.mark.parametrize("kw", [dict(netD_subarch="adaptive"), dict(lambda_kld=1.0)])
 def test_unported_loss_terms_raise(kw):
-    if "is_pose" in kw:
-        cfg = tconfig.pose_config(add_face_D=False)
-        assert cfg.is_pose
-    else:
-        cfg = tconfig.face_config(**kw)
-    with pytest.raises(NotImplementedError):
-        tlc.check_supported(cfg)
+    """The face D and the pose terms are ported (tests/test_torch_pose_losses.py);
+    the adaptive discriminator and the KLD loss are not: building the
+    networks of a face or pose training configuration that asks for them
+    raises, and the same pose configuration without them builds."""
+    tiny = dict(ngf=4, ndf=4, fine_size=32, load_size=32, n_downsample_G=3,
+                n_adaptive_layers=2, no_vgg_loss=True)
+    for preset in (tconfig.face_config, tconfig.pose_config):
+        with pytest.raises(NotImplementedError):
+            build_models(preset(**tiny, **kw), device="cpu")
+    assert build_models(tconfig.pose_config(**tiny), device="cpu").netDf is not None
