@@ -24,7 +24,14 @@ to end at the full width of face_config:
   * the train and test CLIs for face 256 (`phase_cli`) and for pose at
     512 x 256 with the face discriminator and remat (`phase_pose_cli`, the
     teacher's cost volume on 64 x 32 maps of the label's DensePose
-    channels), and a small pose model's step on the card against the CPU.
+    channels), and a small pose model's step on the card against the CPU;
+  * test-time finetune: `cli.test --finetune` on the pose checkpoint, 100
+    steps at full width (`phase_finetune_pose`), and two steps of a small
+    model on the card against the CPU;
+  * street: a small street model's step on the card against the CPU, and
+    the train and test CLIs at 512 x 256, batch 6, one-hot labels
+    (`phase_street_cli`, the teacher's cost volume on 32 x 64 maps of the
+    real images).
 
 Each phase prints one JSON line; the kernels line comes before the last
 line, and the last line is
@@ -281,10 +288,13 @@ def phase_kernels(torch):
 # (B, C, H, W, max_displacement, stride): the teacher's call on a 3-frame
 # sequence of batch 4 at 256 px; the same net at 512 px; the pose teacher's
 # on 512 x 256 label maps (a non-square map whose rows are narrower than the
-# +-20 band); a ragged shape; a stride-1 grid, which only the CUDA-core
-# kernel takes
+# +-20 band); the street teacher's on 2-frame sequences of batch 6 at
+# 256 x 512 (a map wider than high); a ragged shape; a stride-1 grid, which
+# only the CUDA-core kernel takes
+STREET_BATCH = 6   # the reference's 46 over 8 GPUs, rounded up
 CV_SHAPES = {"slice": (12, 256, 32, 32, 20, 2), "px512": (4, 256, 64, 64, 20, 2),
              "pose": (12, 256, 64, 32, 20, 2),
+             "street": (STREET_BATCH * 2, 256, 32, 64, 20, 2),
              "ragged": (2, 40, 13, 19, 4, 2), "stride1": (2, 40, 13, 19, 4, 1)}
 # kernel vs plain version, max abs error.  Both sum <= 256 f32 products of
 # N(0, 1) inputs and divide by C, so |out| < 1:
@@ -752,33 +762,46 @@ def phase_train(torch):
     return res
 
 
-def phase_small_train(torch):
-    """A small model's first f32 train step, teacher included, on the card
-    (B2 kernel) against the CPU (plain version), from the same seed."""
-    from fsvid2vid_tpu_torch.config import face_config
+def small_step_card_vs_cpu(torch, cfg, seq):
+    """A small model's first temporal f32 train step, teacher included, on
+    the card (B2 kernel) and on the CPU (plain version), from one seed and
+    one 2-frame batch `seq` (channel-last, on the CPU; class-index labels
+    for street, which the step one-hot encodes).  Returns each device's
+    losses and teacher confidence means, and each loss's relative error."""
+    from fsvid2vid_tpu_torch.models.input_process import encode_label
     from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
     from fsvid2vid_tpu_torch.training.state import TrainState, build_models
-    from fsvid2vid_tpu_torch.training.step import StepFlags, init_prevs, train_step
-    cfg = face_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
-                      n_downsample_G=3, n_adaptive_layers=2, batch_size=2, niter_single=0)
+    from fsvid2vid_tpu_torch.training.step import StepFlags, train_step
+    from fsvid2vid_tpu_torch.training.trainer import to_device
     losses, conf = {}, {}
     for device in ("cuda", "cpu"):
         gen = torch.Generator().manual_seed(31)
         state = TrainState(cfg, build_models(cfg, device=device, generator=gen))
         teacher = FlowTeacher(cfg, device=device, generator=gen)
-        seq = train_data(torch, cfg, 2, 2, 32, device=device)
-        flow_gt, conf_gt = teacher(cfg, seq, epoch=1)
-        conf[device] = [c.mean().item() for c in conf_gt]
-        at = lambda xs: [x[:, 1] for x in xs]
-        batch = dict(tgt_label=seq["tgt_label"][:, 1], tgt_image=seq["tgt_image"][:, 1],
-                     ref_labels=seq["ref_labels"], ref_images=seq["ref_images"],
+        on = to_device(seq, torch.device(device))
+        flow_gt, conf_gt = teacher(cfg, on, epoch=1)
+        conf[device] = [None if c is None else c.mean().item() for c in conf_gt]
+        at = lambda xs: [None if x is None else x[:, 1] for x in xs]
+        batch = dict(tgt_label=on["tgt_label"][:, 1], tgt_image=on["tgt_image"][:, 1],
+                     ref_labels=on["ref_labels"], ref_images=on["ref_images"],
                      flow_gt=at(flow_gt), conf_gt=at(conf_gt))
-        prevs = dict(label=seq["tgt_label"][:, 0], real=seq["tgt_image"][:, 0],
-                     fake=seq["tgt_image"][:, 0])
+        prevs = dict(label=encode_label(cfg, on["tgt_label"][:, 0]),
+                     real=on["tgt_image"][:, 0], fake=on["tgt_image"][:, 0])
         _, out, _ = train_step(cfg, state, batch, prevs, StepFlags(True, True))
         losses[device] = {k: v.item() for k, v in out.items()}
     rel = {k: abs(v - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
            for k, v in losses["cuda"].items()}
+    return losses, conf, rel
+
+
+def phase_small_train(torch):
+    """A small face model's first f32 train step, teacher included, on the
+    card (B2 kernel) against the CPU (plain version), from the same seed."""
+    from fsvid2vid_tpu_torch.config import face_config
+    cfg = face_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
+                      n_downsample_G=3, n_adaptive_layers=2, batch_size=2, niter_single=0)
+    losses, conf, rel = small_step_card_vs_cpu(
+        torch, cfg, train_data(torch, cfg, 2, 2, 32, device="cpu"))
     emit({"phase": "small_train_card_vs_cpu", "losses_cuda": losses["cuda"],
           "losses_cpu": losses["cpu"], "conf_mean": conf, "max_rel_err": max(rel.values()),
           "tol": SMALL_STEP_RTOL})
@@ -1032,7 +1055,7 @@ def phase_cli(torch):
             "--seq_path", os.path.join(data, "test_images", "0001/"),
             "--ref_img_path", os.path.join(data, "test_images", "0002/")])
         res["test_seconds"] = time.perf_counter() - t0
-        images = os.listdir(os.path.join(web, "images"))
+        images = os.listdir(os.path.join(web.web_dir, "images"))
         res["test_images"] = {kind: sum(kind in i for i in images)
                               for kind in ("synthesized", "input_label", "ref_flow")}
         if res["test_images"]["synthesized"] != CLI_TEST_FRAMES:
@@ -1069,40 +1092,18 @@ def pose_batch(cfg, root, seed):
 
 def phase_small_pose(torch):
     """A small pose model's first temporal f32 train step, teacher, face D
-    and remat included, on the card (B2 kernel) against the CPU (plain
-    version), from the same seed and the same loaded batch.  128 x 64:
-    FlowNet2 takes multiples of 64 pixels, so 64 x 32 would leave the
-    teacher no input."""
+    and remat included, on the card against the CPU from one loaded batch
+    (`small_step_card_vs_cpu`).  128 x 64: FlowNet2 takes multiples of 64
+    pixels, so 64 x 32 would leave the teacher no input."""
     import os
     import tempfile
     from fsvid2vid_tpu_torch.config import pose_config
-    from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
-    from fsvid2vid_tpu_torch.training.state import TrainState, build_models
-    from fsvid2vid_tpu_torch.training.step import StepFlags, train_step
-    from fsvid2vid_tpu_torch.training.trainer import to_device
     cfg = pose_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
                       n_downsample_G=3, n_adaptive_layers=2, batch_size=2, niter_single=0,
                       compute_dtype="float32")
     with tempfile.TemporaryDirectory(prefix="fsv_small_pose_") as tmp:
-        seq_np = pose_batch(cfg, os.path.join(tmp, "data"), seed=51)
-    losses, conf = {}, {}
-    for device in ("cuda", "cpu"):
-        gen = torch.Generator().manual_seed(31)
-        state = TrainState(cfg, build_models(cfg, device=device, generator=gen))
-        teacher = FlowTeacher(cfg, device=device, generator=gen)
-        seq = to_device(seq_np, torch.device(device))
-        flow_gt, conf_gt = teacher(cfg, seq, epoch=1)
-        conf[device] = [c.mean().item() for c in conf_gt]
-        at = lambda xs: [x[:, 1] for x in xs]
-        batch = dict(tgt_label=seq["tgt_label"][:, 1], tgt_image=seq["tgt_image"][:, 1],
-                     ref_labels=seq["ref_labels"], ref_images=seq["ref_images"],
-                     flow_gt=at(flow_gt), conf_gt=at(conf_gt))
-        prevs = dict(label=seq["tgt_label"][:, 0], real=seq["tgt_image"][:, 0],
-                     fake=seq["tgt_image"][:, 0])
-        _, out, _ = train_step(cfg, state, batch, prevs, StepFlags(True, True))
-        losses[device] = {k: v.item() for k, v in out.items()}
-    rel = {k: abs(v - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
-           for k, v in losses["cuda"].items()}
+        seq = pose_batch(cfg, os.path.join(tmp, "data"), seed=51)
+    losses, conf, rel = small_step_card_vs_cpu(torch, cfg, seq)
     emit({"phase": "small_pose_card_vs_cpu", "size": [cfg.height, cfg.width],
           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "conf_mean": conf,
           "max_rel_err": max(rel.values()), "tol": SMALL_POSE_RTOL})
@@ -1112,7 +1113,7 @@ def phase_small_pose(torch):
         raise AssertionError(f"small pose step: face D losses {losses['cuda']}")
 
 
-def phase_pose_cli(torch):
+def phase_pose_cli(torch, tmp):
     """The user's pose entry points at the full width of scripts/pose/train.sh
     (pose_config: 512 x 256, 6-channel labels, face D on 128 x 128 crops,
     remove_face_labels, remat, VGG19 and the FlowNet2 teacher on the labels,
@@ -1122,10 +1123,10 @@ def phase_pose_cli(torch):
     teacher's time per call, one more temporal sequence with remat off and
     on from the same state (step times, peak memory, and the device time of
     a step under torch.profiler), the checkpoint's size and save time, then
-    `cli.test` for POSE_TEST_FRAMES frames from `latest`."""
+    `cli.test` for POSE_TEST_FRAMES frames from `latest`.  The dataset and
+    the checkpoints stay in `tmp` for `phase_finetune_pose`."""
     import math
     import os
-    import tempfile
     from fsvid2vid_tpu_torch.cli import test as cli_test
     from fsvid2vid_tpu_torch.cli import train as cli_train
     from fsvid2vid_tpu_torch.data.loader import SequenceLoader
@@ -1135,21 +1136,217 @@ def phase_pose_cli(torch):
     from fsvid2vid_tpu_torch.training.step import train_step
     from fsvid2vid_tpu_torch.training.trainer import to_device
     res = {"phase": "cli_train_pose_512x256"}
-    with tempfile.TemporaryDirectory(prefix="fsv_pose_") as tmp:
-        t0 = time.perf_counter()
-        data = write_pose_dataset(os.path.join(tmp, "data"), seed=61, n_seqs=POSE_SEQS,
-                                  n_frames=POSE_FRAMES, size=POSE_SOURCE)
-        res["dataset"] = {"sequences": POSE_SEQS, "frames": POSE_FRAMES,
-                          "source_hw": POSE_SOURCE, "densemask": True,
-                          "seconds": time.perf_counter() - t0}
-        ckpts = os.path.join(tmp, "checkpoints")
-        argv = ["--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpts,
-                "--batchSize", "4", "--niter", "2", "--niter_single", "1",
-                "--niter_decay", "0", "--steps_per_epoch", str(POSE_STEPS),
-                "--save_epoch_freq", "1000", "--print_freq", "4", "--display_freq", "4"
-                ] + POSE_FLAGS
+    t0 = time.perf_counter()
+    data = write_pose_dataset(os.path.join(tmp, "data"), seed=61, n_seqs=POSE_SEQS,
+                              n_frames=POSE_FRAMES, size=POSE_SOURCE)
+    res["dataset"] = {"sequences": POSE_SEQS, "frames": POSE_FRAMES,
+                      "source_hw": POSE_SOURCE, "densemask": True,
+                      "seconds": time.perf_counter() - t0}
+    ckpts = os.path.join(tmp, "checkpoints")
+    argv = ["--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--batchSize", "4", "--niter", "2", "--niter_single", "1",
+            "--niter_decay", "0", "--steps_per_epoch", str(POSE_STEPS),
+            "--save_epoch_freq", "1000", "--print_freq", "4", "--display_freq", "4"
+            ] + POSE_FLAGS
 
-        # ---- train: epoch 1 single-frame, epoch 2 temporal (2 frames) ----
+    # ---- train: epoch 1 single-frame, epoch 2 temporal (2 frames) ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(cv)
+    t0 = time.perf_counter()
+    run = cli_train.main(argv)
+    torch.cuda.synchronize()
+    res["train_seconds"] = time.perf_counter() - t0
+    res["launches_train"] = check_counts(cv, "pose cli train", POSE_STEPS * 1 + POSE_STEPS * 2)
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    cfg, trainer = run.cfg, run.trainer
+    res["config"] = {k: getattr(cfg, k) for k in (
+        "height", "width", "input_nc", "batch_size", "ngf", "n_downsample_G",
+        "n_adaptive_layers", "ndf", "add_face_D", "remove_face_labels", "remat",
+        "n_shot", "n_frames_G", "num_workers", "compute_dtype", "no_vgg_loss",
+        "no_flow_gt")}
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    res["params"] = {k: count(getattr(trainer.models, "net" + k)) for k in ("G", "D", "DT", "Df")}
+    if not (cfg.is_pose and cfg.remat and cfg.add_face_D and cfg.remove_face_labels):
+        raise AssertionError(f"pose cli config: {res['config']}")
+    run_dir = os.path.join(ckpts, "pose")
+    for name in ("loss_log.txt", "latest", os.path.join("web", "index.html")):
+        if not os.path.exists(os.path.join(run_dir, name)):
+            raise AssertionError(f"pose cli train wrote no {name}")
+    res["epoch_losses"] = trainer.epoch_metrics
+    bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
+           if not math.isfinite(v)]
+    face = [(e, k) for e, m in trainer.epoch_metrics.items()
+            for k in ("Df_real", "Df_fake", "Gf_GAN", "Gf_GAN_Feat") if not m[k] > 0]
+    if sorted(trainer.epoch_metrics) != [1, 2] or bad or face:
+        raise AssertionError(f"pose cli epochs {sorted(trainer.epoch_metrics)}, "
+                             f"non-finite losses {bad}, face D losses not > 0 {face}")
+    res["sequences"] = sequence_times(trainer.timings)
+    res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
+
+    # ---- the teacher on a loaded 2-frame batch (two flow computations) ----
+    loader = SequenceLoader(cfg, steps_per_epoch=1, seed=cfg.seed + 1)
+    loader.set_epoch_frames(2)
+    seq = to_device(next(iter(loader.epoch(3))), run.device)
+    zero_counts(cv)
+    teacher_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.teacher(cfg, seq, 2)
+        torch.cuda.synchronize()
+        teacher_ms.append(1e3 * (time.perf_counter() - t0))
+    res["teacher_ms"] = teacher_ms
+    res["launches_teacher"] = check_counts(cv, "pose teacher", 3 * 2)
+
+    # ---- one more temporal sequence with remat off and on, each run
+    # from the same state (saved once, restored before every run) on the
+    # same batch: first on the host clock with its peak memory, then
+    # under torch.profiler for the device time of its last step ----
+    netG = trainer.models.netG
+    ckpt.save(cfg, trainer.state, 3, label="remat_pair")
+    for remat in (False, True):
+        rcfg = cfg.replace(remat=remat)
+        netG.cfg = rcfg
+        for profile in (False, True):
+            ckpt.restore(cfg, trainer.state, "remat_pair")
+            torch.manual_seed(cfg.seed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            log = []
+            run_train_sequence(torch, rcfg, trainer.state, run.teacher, train_step, seq,
+                               2, cfg.compute_dtype, log, profile=profile)
+            key = "remat_" + ("on" if remat else "off") + ("_profiled" if profile else "")
+            res[key] = log[0]
+    netG.cfg = cfg
+    on, off = res["remat_on"], res["remat_off"]
+    res["remat_peak_saving_gb"] = off["peak_memory_gb"] - on["peak_memory_gb"]
+    # the recomputation's cost on the device: the profiled last step's
+    # kernel time with remat on less that with it off
+    res["remat_step_device_ms"] = {
+        k: res[f"remat_{k}_profiled"]["profile_step"]["device_ms"] for k in ("off", "on")}
+    res["remat_recompute_device_ms"] = (res["remat_step_device_ms"]["on"]
+                                        - res["remat_step_device_ms"]["off"])
+    # the pairing: both unprofiled runs' losses, frame by frame
+    res["remat_loss_max_abs_diff"] = max(
+        abs(a[k] - b[k]) for a, b in zip(on["losses"], off["losses"]) for k in a)
+
+    # ---- the checkpoint: bytes and save seconds ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save(cfg, trainer.state, 3)
+    res["checkpoint_save_seconds"] = time.perf_counter() - t0
+    res["checkpoint_bytes"] = os.path.getsize(path)
+    del run, trainer, netG, seq
+    torch.cuda.empty_cache()
+
+    # ---- inference from latest ----
+    t0 = time.perf_counter()
+    web = cli_test.main([
+        "--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpts,
+        "--results_dir", os.path.join(tmp, "results"), "--how_many", str(POSE_TEST_FRAMES),
+        "--seq_path", os.path.join(data, "test_images", "0001/"),
+        "--ref_img_path", os.path.join(data, "test_images", "0002/")] + POSE_FLAGS)
+    res["test_seconds"] = time.perf_counter() - t0
+    images = os.listdir(os.path.join(web.web_dir, "images"))
+    res["test_images"] = {kind: sum(kind in i for i in images)
+                          for kind in ("synthesized", "input_label", "ref_flow")}
+    if res["test_images"]["synthesized"] != POSE_TEST_FRAMES:
+        raise AssertionError(f"pose cli test wrote {res['test_images']}")
+    res.update(data=data, checkpoints=ckpts)
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
+# ----------------------------------------------------------------------
+# street training (scripts/street/train.sh) and its CLIs; test-time finetune
+# (scripts/pose/test.sh --finetune)
+# ----------------------------------------------------------------------
+STREET_FLAGS = ["--dataset_mode", "fewshot_street", "--adaptive_spade",
+                "--loadSize", "512", "--fineSize", "512"]
+STREET_SEQS, STREET_FRAMES = 2, 12   # source frames 512 x 1024 (write_street_dataset)
+STREET_STEPS = 3          # sequences per epoch
+STREET_TEST_FRAMES = 8
+# small street model, one temporal f32 step: the card (B2 kernel in the
+# teacher) vs the CPU (plain version), as SMALL_STEP_RTOL for face
+SMALL_STREET_RTOL = 1e-3
+# two finetune steps of a small pose model, card vs CPU; lr 1e-6 so that
+# step 2 does not hang on the signs of near-zero gradients (Adam's first
+# step moves every parameter by +-lr, tests/test_torch_trainer.py)
+SMALL_FINETUNE_RTOL = 1e-3
+
+
+def phase_small_street(torch):
+    """A small street model's first temporal f32 train step, teacher
+    included, on the card against the CPU from one loaded batch of
+    class-index labels (`small_step_card_vs_cpu`).  128 x 64: FlowNet2 takes
+    multiples of 64 pixels."""
+    import os
+    import tempfile
+    from fsvid2vid_tpu_torch.config import street_config
+    from fsvid2vid_tpu_torch.data.loader import SequenceLoader
+    from fsvid2vid_tpu_torch.data.synthetic import write_street_dataset
+    cfg = street_config(ngf=8, nff=8, ndf=8, fine_size=128, load_size=128, n_blocks_F=2,
+                        n_downsample_G=3, n_adaptive_layers=2, batch_size=2,
+                        niter_single=0, compute_dtype="float32")
+    with tempfile.TemporaryDirectory(prefix="fsv_small_street_") as tmp:
+        root = write_street_dataset(os.path.join(tmp, "data"), seed=71, n_seqs=2,
+                                    n_frames=4, size=(128, 256))
+        loader = SequenceLoader(cfg.replace(dataroot=root), steps_per_epoch=1, seed=71,
+                                num_workers=0)
+        loader.set_epoch_frames(2)
+        seq = next(iter(loader.epoch(2)))
+    losses, conf, rel = small_step_card_vs_cpu(torch, cfg, seq)
+    emit({"phase": "small_street_card_vs_cpu", "size": [cfg.height, cfg.width],
+          "labels": sorted(set(seq["tgt_label"].ravel().tolist())),
+          "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "conf_mean": conf,
+          "max_rel_err": max(rel.values()), "tol": SMALL_STREET_RTOL})
+    if not max(rel.values()) <= SMALL_STREET_RTOL:
+        raise AssertionError(f"small street step, card vs CPU: {rel}")
+    if not all(losses["cuda"][k] > 0 for k in ("F_Warp", "F_Mask", "D_real", "G_GAN")):
+        raise AssertionError(f"small street step: losses {losses['cuda']}")
+
+
+def phase_street_cli(torch):
+    """The user's street entry points at the full width of
+    scripts/street/train.sh (street_config: 512 x 256, 20 one-hot label
+    classes, ngf 32, n_downsample_G 5, n_adaptive_layers 4, ndf 32, no
+    warp_ref and no spade_combine, VGG19 and the FlowNet2 teacher on the
+    real images, bf16) at a per-GPU batch of STREET_BATCH, on a seeded
+    synthetic street dataset of 512 x 1024 frames: `cli.train.main` for one
+    single-frame and one temporal epoch on 4 loader threads (kernel B2 once
+    per flow computation in the temporal epoch, at 32 x 64), three teacher
+    calls, one more temporal sequence with its last step under
+    torch.profiler, the checkpoint's size and save time, then `cli.test
+    --dataset_mode fewshot_street` for STREET_TEST_FRAMES frames."""
+    import math
+    import os
+    import tempfile
+    from fsvid2vid_tpu_torch.cli import test as cli_test
+    from fsvid2vid_tpu_torch.cli import train as cli_train
+    from fsvid2vid_tpu_torch.data.loader import SequenceLoader
+    from fsvid2vid_tpu_torch.data.synthetic import write_street_dataset
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.training import checkpoint as ckpt
+    from fsvid2vid_tpu_torch.training.step import train_step
+    from fsvid2vid_tpu_torch.training.trainer import to_device
+    res = {"phase": "cli_train_street_512"}
+    with tempfile.TemporaryDirectory(prefix="fsv_street_") as tmp:
+        t0 = time.perf_counter()
+        data = write_street_dataset(os.path.join(tmp, "data"), seed=81, n_seqs=STREET_SEQS,
+                                    n_frames=STREET_FRAMES)
+        res["dataset"] = {"sequences": STREET_SEQS, "frames": STREET_FRAMES,
+                          "source_hw": [512, 1024], "seconds": time.perf_counter() - t0}
+        ckpts = os.path.join(tmp, "checkpoints")
+        argv = ["--name", "street", "--dataroot", data, "--checkpoints_dir", ckpts,
+                "--batchSize", str(STREET_BATCH), "--niter", "2", "--niter_single", "1",
+                "--niter_decay", "0", "--steps_per_epoch", str(STREET_STEPS),
+                "--save_epoch_freq", "1000", "--print_freq", "6", "--display_freq", "6"
+                ] + STREET_FLAGS
+
+        # ---- train: epoch 1 single-frame (no flow ground truth: no
+        # warp_ref), epoch 2 temporal (2 frames, one flow computation each) ----
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts(cv)
@@ -1157,34 +1354,36 @@ def phase_pose_cli(torch):
         run = cli_train.main(argv)
         torch.cuda.synchronize()
         res["train_seconds"] = time.perf_counter() - t0
-        res["launches_train"] = check_counts(cv, "pose cli train", POSE_STEPS * 1 + POSE_STEPS * 2)
+        res["launches_train"] = check_counts(cv, "street cli train", STREET_STEPS)
         res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
         cfg, trainer = run.cfg, run.trainer
         res["config"] = {k: getattr(cfg, k) for k in (
-            "height", "width", "input_nc", "batch_size", "ngf", "n_downsample_G",
-            "n_adaptive_layers", "ndf", "add_face_D", "remove_face_labels", "remat",
+            "height", "width", "label_nc", "gen_input_nc", "netD_input_nc", "batch_size",
+            "ngf", "n_downsample_G", "n_adaptive_layers", "ndf", "warp_ref", "spade_combine",
             "n_shot", "n_frames_G", "num_workers", "compute_dtype", "no_vgg_loss",
-            "no_flow_gt")}
+            "no_flow_gt", "remat", "resize_or_crop")}
+        if not (cfg.is_street and cfg.label_nc == 20 and (cfg.height, cfg.width) == (256, 512)
+                and not (cfg.warp_ref or cfg.spade_combine)):
+            raise AssertionError(f"street cli config: {res['config']}")
         count = lambda m: sum(p.numel() for p in m.parameters())
-        res["params"] = {k: count(getattr(trainer.models, "net" + k)) for k in ("G", "D", "DT", "Df")}
-        if not (cfg.is_pose and cfg.remat and cfg.add_face_D and cfg.remove_face_labels):
-            raise AssertionError(f"pose cli config: {res['config']}")
-        run_dir = os.path.join(ckpts, "pose")
+        res["params"] = {k: count(getattr(trainer.models, "net" + k)) for k in ("G", "D", "DT")}
+        res["label_first_conv_in"] = trainer.models.netG.ref_label_first.conv.weight_orig.shape[1]
+        run_dir = os.path.join(ckpts, "street")
         for name in ("loss_log.txt", "latest", os.path.join("web", "index.html")):
             if not os.path.exists(os.path.join(run_dir, name)):
-                raise AssertionError(f"pose cli train wrote no {name}")
+                raise AssertionError(f"street cli train wrote no {name}")
         res["epoch_losses"] = trainer.epoch_metrics
         bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
                if not math.isfinite(v)]
-        face = [(e, k) for e, m in trainer.epoch_metrics.items()
-                for k in ("Df_real", "Df_fake", "Gf_GAN", "Gf_GAN_Feat") if not m[k] > 0]
-        if sorted(trainer.epoch_metrics) != [1, 2] or bad or face:
-            raise AssertionError(f"pose cli epochs {sorted(trainer.epoch_metrics)}, "
-                                 f"non-finite losses {bad}, face D losses not > 0 {face}")
+        if sorted(trainer.epoch_metrics) != [1, 2] or bad:
+            raise AssertionError(f"street cli epochs {sorted(trainer.epoch_metrics)}, "
+                                 f"non-finite losses {bad}, {trainer.epoch_metrics}")
         res["sequences"] = sequence_times(trainer.timings)
         res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
+        res["wait_ms"] = [t["wait_ms"] for t in res["sequences"]]
 
-        # ---- the teacher on a loaded 2-frame batch (two flow computations) ----
+        # ---- the teacher on a loaded 2-frame batch (one flow computation
+        # of 2 x STREET_BATCH pairs: the flow to the previous frame) ----
         loader = SequenceLoader(cfg, steps_per_epoch=1, seed=cfg.seed + 1)
         loader.set_epoch_frames(2)
         seq = to_device(next(iter(loader.epoch(3))), run.device)
@@ -1197,39 +1396,17 @@ def phase_pose_cli(torch):
             torch.cuda.synchronize()
             teacher_ms.append(1e3 * (time.perf_counter() - t0))
         res["teacher_ms"] = teacher_ms
-        res["launches_teacher"] = check_counts(cv, "pose teacher", 3 * 2)
+        res["launches_teacher"] = check_counts(cv, "street teacher", 3)
 
-        # ---- one more temporal sequence with remat off and on, each run
-        # from the same state (saved once, restored before every run) on the
-        # same batch: first on the host clock with its peak memory, then
-        # under torch.profiler for the device time of its last step ----
-        netG = trainer.models.netG
-        ckpt.save(cfg, trainer.state, 3, label="remat_pair")
-        for remat in (False, True):
-            rcfg = cfg.replace(remat=remat)
-            netG.cfg = rcfg
-            for profile in (False, True):
-                ckpt.restore(cfg, trainer.state, "remat_pair")
-                torch.manual_seed(cfg.seed)
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                log = []
-                run_train_sequence(torch, rcfg, trainer.state, run.teacher, train_step, seq,
-                                   2, cfg.compute_dtype, log, profile=profile)
-                key = "remat_" + ("on" if remat else "off") + ("_profiled" if profile else "")
-                res[key] = log[0]
-        netG.cfg = cfg
-        on, off = res["remat_on"], res["remat_off"]
-        res["remat_peak_saving_gb"] = off["peak_memory_gb"] - on["peak_memory_gb"]
-        # the recomputation's cost on the device: the profiled last step's
-        # kernel time with remat on less that with it off
-        res["remat_step_device_ms"] = {
-            k: res[f"remat_{k}_profiled"]["profile_step"]["device_ms"] for k in ("off", "on")}
-        res["remat_recompute_device_ms"] = (res["remat_step_device_ms"]["on"]
-                                            - res["remat_step_device_ms"]["off"])
-        # the pairing: both unprofiled runs' losses, frame by frame
-        res["remat_loss_max_abs_diff"] = max(
-            abs(a[k] - b[k]) for a, b in zip(on["losses"], off["losses"]) for k in a)
+        # ---- one more temporal sequence, its last step under torch.profiler ----
+        log = []
+        run_train_sequence(torch, cfg, trainer.state, run.teacher, train_step, seq, 2,
+                           cfg.compute_dtype, log, profile=True)
+        prof = log[0]["profile_step"]
+        res["profiled_sequence"] = {k: log[0][k] for k in (
+            "teacher_ms", "step_ms", "peak_memory_gb", "flow_calls")}
+        res["profile_step"] = prof
+        res["profile_teacher"] = log[0]["profile_teacher"]
 
         # ---- the checkpoint: bytes and save seconds ----
         torch.cuda.synchronize()
@@ -1237,28 +1414,135 @@ def phase_pose_cli(torch):
         path = ckpt.save(cfg, trainer.state, 3)
         res["checkpoint_save_seconds"] = time.perf_counter() - t0
         res["checkpoint_bytes"] = os.path.getsize(path)
-        del run, trainer, netG, seq
+        del run, trainer, seq
         torch.cuda.empty_cache()
 
         # ---- inference from latest ----
+        zero_counts(cv)
         t0 = time.perf_counter()
-        web = cli_test.main([
-            "--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpts,
-            "--results_dir", os.path.join(tmp, "results"), "--how_many", str(POSE_TEST_FRAMES),
-            "--seq_path", os.path.join(data, "test_images", "0001/"),
-            "--ref_img_path", os.path.join(data, "test_images", "0002/")] + POSE_FLAGS)
+        out = cli_test.main([
+            "--name", "street", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--results_dir", os.path.join(tmp, "results"), "--how_many",
+            str(STREET_TEST_FRAMES), "--seq_path", os.path.join(data, "test_images", "0001/"),
+            "--ref_img_path", os.path.join(data, "test_images", "0002/")] + STREET_FLAGS)
         res["test_seconds"] = time.perf_counter() - t0
-        images = os.listdir(os.path.join(web, "images"))
+        res["test_frame_ms"] = [1e3 * t for t in out.frame_seconds]
+        res["test_first_frame_seconds"] = out.first_frame_seconds
+        images = os.listdir(os.path.join(out.web_dir, "images"))
         res["test_images"] = {kind: sum(kind in i for i in images)
-                              for kind in ("synthesized", "input_label", "ref_flow")}
-        if res["test_images"]["synthesized"] != POSE_TEST_FRAMES:
-            raise AssertionError(f"pose cli test wrote {res['test_images']}")
+                              for kind in ("synthesized", "input_label")}
+        if res["test_images"]["synthesized"] != STREET_TEST_FRAMES or out.nonfinite_frames:
+            raise AssertionError(f"street cli test wrote {res['test_images']}, "
+                                 f"non-finite frames {out.nonfinite_frames}")
     emit(res)
     torch.cuda.empty_cache()
     return res
 
 
+def phase_finetune_pose(torch, tmp):
+    """scripts/pose/test.sh: `cli.test --dataset_mode fewshot_pose ...
+    --finetune` on the checkpoint `phase_pose_cli` left in `tmp`, with the
+    reference's 100 iterations at the slice's full width, then
+    POSE_TEST_FRAMES frames.  The finetune is observed through its module
+    function: the G parameters outside finetune_mask leave it bitwise as
+    they entered, some inside it move, and so do the image and face
+    discriminators' (the temporal one sees no frame sequence)."""
+    import os
+    from fsvid2vid_tpu_torch.cli import test as cli_test
+    from fsvid2vid_tpu_torch.inference import finetune as ft_lib
+    res = {"phase": "finetune_pose"}
+    data, ckpts = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
+    real = ft_lib.finetune
+
+    def observed(cfg, models, *args, **kw):
+        mask = ft_lib.finetune_mask(models.netG)
+        before = {n: p.detach().clone() for n, p in models.netG.named_parameters()}
+        nets_D = {k: getattr(models, "net" + k) for k in ("D", "DT", "Df")}
+        before_D = {k: [p.detach().clone() for p in net.parameters()]
+                    for k, net in nets_D.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = real(cfg, models, *args, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        params = dict(models.netG.named_parameters())
+        moved = [n for n, p in params.items() if not torch.equal(p, before[n])]
+        res.update(
+            iters=len(out[1]), seconds=seconds, ms_per_step=1e3 * seconds / len(out[1]),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            g_params=len(params), g_params_in_mask=sum(mask.values()),
+            g_params_moved=len(moved),
+            g_params_moved_outside_mask=[n for n in moved if not mask[n]],
+            # [moved, of] per discriminator; the temporal D sees no frames here
+            d_params_moved={k: [sum(int(not torch.equal(p, q)) for p, q in zip(
+                net.parameters(), before_D[k])), len(before_D[k])]
+                for k, net in nets_D.items()},
+            losses_first={k: v.item() for k, v in out[1][0].items()},
+            losses_last={k: v.item() for k, v in out[1][-1].items()},
+            compute_dtype=cfg.compute_dtype, remat=cfg.remat, add_face_D=cfg.add_face_D)
+        return out
+
+    ft_lib.finetune = observed
+    try:
+        t0 = time.perf_counter()
+        out = cli_test.main([
+            "--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--results_dir", os.path.join(tmp, "results_finetune"), "--how_many",
+            str(POSE_TEST_FRAMES), "--seq_path", os.path.join(data, "test_images", "0001/"),
+            "--ref_img_path", os.path.join(data, "test_images", "0002/"), "--finetune"]
+            + POSE_FLAGS)
+        res["test_seconds"] = time.perf_counter() - t0
+    finally:
+        ft_lib.finetune = real
+    res["first_frame_seconds"] = out.first_frame_seconds
+    res["frame_ms"] = [1e3 * t for t in out.frame_seconds]
+    res["nonfinite_frames"] = out.nonfinite_frames
+    emit(res)
+    losses = list(res["losses_last"].values()) + list(res["losses_first"].values())
+    if (res["iters"] != 100 or res["g_params_moved_outside_mask"]
+            or res["g_params_moved"] == 0
+            or any(moved < 0.9 * of for k, (moved, of) in res["d_params_moved"].items()
+                   if k != "DT")
+            or out.nonfinite_frames or not all(v == v and abs(v) != float("inf")
+                                               for v in losses)):
+        raise AssertionError(f"finetune_pose: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_small_finetune(torch):
+    """Two finetune steps of a small pose model (face D, remat) at 64 x 32,
+    card against CPU from one seed and one loaded reference."""
+    import os
+    import tempfile
+    from fsvid2vid_tpu_torch.config import pose_config
+    from fsvid2vid_tpu_torch.inference.finetune import finetune
+    from fsvid2vid_tpu_torch.training.state import build_models
+    cfg = pose_config(ngf=8, nff=8, ndf=8, fine_size=32, load_size=32, n_blocks_F=2,
+                      n_downsample_G=3, n_adaptive_layers=2, batch_size=1,
+                      is_train=False, finetune=True, finetune_iters=2, lr=1e-6,
+                      compute_dtype="float32")
+    with tempfile.TemporaryDirectory(prefix="fsv_small_ft_") as tmp:
+        seq = pose_batch(cfg.replace(is_train=True, batch_size=2),
+                         os.path.join(tmp, "data"), seed=91)
+    refs = seq["ref_labels"][:1], seq["ref_images"][:1]
+    losses = {}
+    for device in ("cuda", "cpu"):
+        models = build_models(cfg, device=device, generator=torch.Generator().manual_seed(33))
+        _, history = finetune(cfg, models, *refs, seed=5)
+        losses[device] = [{k: v.item() for k, v in h.items()} for h in history]
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+              for a, b in zip(losses["cuda"], losses["cpu"]) for k in b)
+    emit({"phase": "small_finetune_card_vs_cpu", "size": [cfg.height, cfg.width],
+          "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"],
+          "max_rel_err": rel, "tol": SMALL_FINETUNE_RTOL})
+    if not rel <= SMALL_FINETUNE_RTOL:
+        raise AssertionError(f"small finetune, card vs CPU: {rel}")
+
+
 def main() -> int:
+    import tempfile
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1279,7 +1563,12 @@ def main() -> int:
     phase_small_train(torch)
     cli_res = phase_cli(torch)
     phase_small_pose(torch)
-    pose_res = phase_pose_cli(torch)
+    with tempfile.TemporaryDirectory(prefix="fsv_pose_") as pose_tmp:
+        pose_res = phase_pose_cli(torch, pose_tmp)
+        phase_finetune_pose(torch, pose_tmp)
+    phase_small_finetune(torch)
+    phase_small_street(torch)
+    street_res = phase_street_cli(torch)
     bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
     c36 = kern["ragged_c36", "float32"]
     routes = slice_res["launches_by_route"]
@@ -1324,9 +1613,11 @@ def main() -> int:
                              "cli_train_face_256": cli_res["launches_train"]["tc"],
                              "cli_resume": cli_res["resume"]["launches"]["tc"],
                              "cli_train_pose_512x256": pose_res["launches_train"]["tc"],
-                             "pose_teacher": pose_res["launches_teacher"]["tc"]},
-        "pose_shape": {k: cv_res["pose", "float32"][k] for k in cv_keys + (
-            "shape", "bound_share", "previous_design_ms")},
+                             "pose_teacher": pose_res["launches_teacher"]["tc"],
+                             "cli_train_street_512": street_res["launches_train"]["tc"],
+                             "street_teacher": street_res["launches_teacher"]["tc"]},
+        **{f"{case}_shape": {k: cv_res[case, "float32"][k] for k in cv_keys + (
+            "shape", "bound_share", "previous_design_ms")} for case in ("pose", "street")},
         **{k: cv_main[k] for k in cv_keys},
         **{k: cv_main[k] for k in ("previous_design_ms", "bound_share", "design_bound_ms",
                                    "design_bound_share", "f32_cuda_core_bound_ms")},

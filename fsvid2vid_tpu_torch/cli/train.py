@@ -1,17 +1,21 @@
 """Training CLI of the PyTorch port (the twin of the JAX package's train.py;
-reference train.py): few-shot vid2vid face or pose training on one CUDA
-device.
+reference train.py): few-shot vid2vid face, pose or street training on one
+CUDA device.
 
   python -m fsvid2vid_tpu_torch.cli.train --name face --dataroot datasets/face \\
       --adaptive_spade --warp_ref --spade_combine --batchSize 4
   python -m fsvid2vid_tpu_torch.cli.train --name pose --dataroot datasets/pose \\
       --dataset_mode fewshot_pose --adaptive_spade --warp_ref --spade_combine \\
       --remove_face_labels --add_face_D --batchSize 4
+  python -m fsvid2vid_tpu_torch.cli.train --name street --dataroot datasets/street \\
+      --dataset_mode fewshot_street --adaptive_spade --loadSize 512 --fineSize 512 \\
+      --batchSize 6
 
 The argparse surface keeps the JAX CLI's flags, flag for flag, plus
 `--device` (CUDA unless named; the tests pass `--device cpu`).  Parsed flags
 override the workload preset that `--dataset_mode` names (fewshot_pose
--> pose_config, with remat on).  A flag the port cannot honour yet exits
+-> pose_config, with remat on; fewshot_street -> street_config, 20 one-hot
+label classes at 512 x 256).  A flag the port cannot honour yet exits
 non-zero and names its ROADMAP.md item; none is dropped silently.
 """
 from __future__ import annotations
@@ -136,10 +140,7 @@ def config_from_args(parser: argparse.ArgumentParser, args, is_train: bool = Tru
     for flag, item in UNPORTED_FLAGS.items():
         if flag in given:
             parser.error(f"--{flag} is not ported yet (ROADMAP.md {item})")
-    if args.dataset_mode == "fewshot_street":
-        parser.error("--dataset_mode fewshot_street is not ported yet "
-                     "(ROADMAP.md A.9: the street dataset)")
-    if args.dataset_mode not in ("fewshot_face", "fewshot_pose"):
+    if args.dataset_mode not in ("fewshot_face", "fewshot_pose", "fewshot_street"):
         parser.error(f"unknown --dataset_mode {args.dataset_mode}")
     fields = {f.name for f in dataclasses.fields(Config)}
     unknown = set(given) - fields - RUN_FLAGS

@@ -23,18 +23,16 @@ import numpy as np
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.data.face import FewshotFaceDataset
 from fsvid2vid_tpu_torch.data.pose import FewshotPoseDataset
+from fsvid2vid_tpu_torch.data.street import FewshotStreetDataset
 
-DATASETS = {"fewshot_face": FewshotFaceDataset, "fewshot_pose": FewshotPoseDataset}
-NOT_PORTED = {"fewshot_street": "the street dataset"}
+DATASETS = {"fewshot_face": FewshotFaceDataset, "fewshot_pose": FewshotPoseDataset,
+            "fewshot_street": FewshotStreetDataset}
 
 
 def create_dataset(cfg: Config):
     """Name -> dataset instance (reference find_dataset_using_name,
     data/__init__.py:11-33)."""
     name = cfg.dataset_mode
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"dataset_mode {name!r}: {NOT_PORTED[name]} is "
-                                  "not ported yet (ROADMAP.md A.9)")
     if name not in DATASETS:
         raise ValueError(f"unknown dataset_mode {name!r}; "
                          f"available: {sorted(DATASETS)}")

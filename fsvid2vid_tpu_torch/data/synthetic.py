@@ -1,6 +1,8 @@
-"""A seeded synthetic dataset in the pose layout that FewshotPoseDataset
-reads, for smoke runs and tests (no real DensePose or OpenPose output is
-needed):
+"""Seeded synthetic datasets in the layouts the port's datasets read, for
+smoke runs and tests.
+
+`write_pose_dataset` writes the pose layout that FewshotPoseDataset reads
+(no real DensePose or OpenPose output is needed):
 
   <root>/{train,test}_images/<seq>/<frame>.jpg
   <root>/{train,test}_openpose/<seq>/<frame>.json    BODY_25, face, hands
@@ -12,6 +14,17 @@ Each frame shows a walking stick figure (body, 70 face points, two hands)
 and a smaller second figure whose DensePose parts and mask id the INDS map
 tells apart.  Frames move a few pixels from one to
 the next, so flows between them are small.
+
+`write_street_dataset` writes the street layout that FewshotStreetDataset
+reads:
+
+  <root>/{train,test}_labels/<seq>/<frame>.png   Cityscapes ids 0-33, "L"
+  <root>/{train,test}_images/<seq>/<frame>.jpg
+
+Each frame is a street scene of piecewise-constant regions (sky, buildings,
+road, sidewalks, vegetation, a pole, cars, the ego vehicle) whose cars drive
+a few pixels a frame, with an image painted from the regions' colours plus
+noise.
 """
 from __future__ import annotations
 
@@ -152,4 +165,66 @@ def write_pose_dataset(root: str, seed: int, n_seqs: int = 2, n_frames: int = 6,
                 sub["ppl_indices"].append([int(rng.randint(2))] * (end - start))
         with open(os.path.join(root, "all_subsequences.json"), "w") as fp:
             json.dump(sub, fp)
+    return root
+
+
+# Cityscapes ids of the street scene's regions (the 35-class label maps the
+# street dataset remaps to 20), and each region's colour in the frames
+_STREET_COLOURS = {1: (20, 20, 20), 7: (128, 64, 128), 8: (244, 35, 232),
+                   11: (70, 70, 70), 17: (153, 153, 153), 21: (107, 142, 35),
+                   23: (70, 130, 180), 26: (0, 0, 142)}
+
+
+def _street_ids(rng, h, w, frame, cars, buildings):
+    """(h, w) uint8 Cityscapes ids of one frame."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    horizon = 0.45 * h
+    ids = np.full((h, w), 23, np.uint8)                         # sky
+    for x0, x1, top in buildings:
+        ids[(xx >= x0 * w) & (xx < x1 * w) & (yy >= top * h) & (yy < horizon)] = 11
+    ids[(yy >= horizon - 0.08 * h) & (yy < horizon) & (xx < 0.2 * w)] = 21  # trees
+    ground = yy >= horizon
+    ids[ground] = 8                                             # sidewalks
+    spread = (yy - horizon) * (w / h) * 0.9
+    ids[ground & (np.abs(xx - w / 2) < 0.08 * w + spread)] = 7  # road
+    ids[(np.abs(xx - 0.82 * w) < 0.006 * w) & (yy > 0.2 * h) & (yy < 0.7 * h)] = 17
+    for x, y, size, speed in cars:
+        cx = (x + speed * frame) % 1.0 * w
+        ids[(np.abs(xx - cx) < size * w) & (yy > y * h - 0.6 * size * w)
+            & (yy < y * h)] = 26
+    ids[yy >= 0.92 * h] = 1                                     # ego vehicle
+    return ids
+
+
+def write_street_dataset(root: str, seed: int, n_seqs: int = 2, n_frames: int = 6,
+                         size=(512, 1024)) -> str:
+    """Write the dataset under `root`; returns `root`.  size: (H, W) of the
+    source frames; 512 x 1024 makes the street preset's random scale and
+    crop to 256 x 512 rescale every frame."""
+    rng = np.random.RandomState(seed)
+    h, w = size
+    for s in range(n_seqs):
+        name = f"{s + 1:04d}"
+        for split in ("train", "test"):
+            for kind in ("labels", "images"):
+                os.makedirs(os.path.join(root, f"{split}_{kind}", name), exist_ok=True)
+        buildings = [(x0, x0 + rng.uniform(0.1, 0.2), rng.uniform(0.05, 0.3))
+                     for x0 in np.arange(0.0, 1.0, 0.22)]
+        cars = [(rng.uniform(0, 1), rng.uniform(0.6, 0.85), rng.uniform(0.03, 0.06),
+                 rng.choice([-1, 1]) * rng.uniform(0.004, 0.01)) for _ in range(3)]
+        tint = rng.uniform(0.8, 1.2, 3)
+        for f in range(n_frames):
+            ids = _street_ids(rng, h, w, f, cars, buildings)
+            palette = np.zeros((256, 3))
+            for cid, colour in _STREET_COLOURS.items():
+                palette[cid] = np.asarray(colour) * tint
+            texture = Image.fromarray(rng.randint(0, 255, (h // 32, w // 32, 3), np.uint8))
+            texture = np.asarray(texture.resize((w, h), Image.BICUBIC), np.float64)
+            pixels = palette[ids] + 0.15 * (texture - 128) + rng.normal(0, 4, (h, w, 3))
+            img = Image.fromarray(np.clip(pixels, 0, 255).astype(np.uint8))
+            label = Image.fromarray(ids)   # uint8 (h, w): mode "L"
+            for split in ("train", "test"):
+                label.save(os.path.join(root, f"{split}_labels", name, f"{f:05d}.png"))
+                img.save(os.path.join(root, f"{split}_images", name, f"{f:05d}.jpg"),
+                         quality=90)
     return root

@@ -1,0 +1,96 @@
+"""Test-time finetune (port of fsvid2vid_tpu/inference/finetune.py;
+reference Vid2VidModel.finetune, vid2vid_model.py:207-237): before an
+unseen subject is synthesised, a name-filtered subset of the generator
+({fc*, conv_img, up*}: the substring filter of get_train_params,
+base_model.py:149-165) and every discriminator take `finetune_iters` (100)
+single-frame D+G steps on randomly rolled and flipped copies of the
+references.
+
+The steps are the port's `train_step` (training/step.py) with cfg.finetune
+set and no previous frames, under fresh Adam optimisers with TrainState's
+two-time-scale rates: G's over the filtered parameters only (the JAX
+version's masked optimiser zeroes the other updates), D's over all
+discriminators.  The other generator parameters take no gradient during the
+loop, so they leave it bitwise as they entered; buffers (spectral u / v,
+batch-norm statistics) advance as in any train step.  K = 1 only: train
+mode at K > 1 waits for the differentiable attention (ROADMAP.md A.6).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from fsvid2vid_tpu_torch.config import Config
+from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
+from fsvid2vid_tpu_torch.training.step import StepFlags, init_prevs, train_step
+
+FINETUNE_NAMES = ("fc", "conv_img", "up")   # vid2vid_model.py:208
+
+
+def finetune_mask(netG: torch.nn.Module) -> Dict[str, bool]:
+    """Parameter name -> whether finetune trains it: any of FINETUNE_NAMES
+    is a substring of the name (JAX `finetune_mask` over flax paths)."""
+    return {name: any(n in name for n in FINETUNE_NAMES)
+            for name, _ in netG.named_parameters()}
+
+
+def random_roll_np(arrays, rng: np.random.RandomState) -> List[np.ndarray]:
+    """Reference random_roll (util/util.py:157-168): one circular shift by
+    up to h // 16 and w // 16 in either direction and one random horizontal
+    flip, applied to every (B, H, W, C) array.  Draws from `rng` in the JAX
+    function's order, so one seed gives the same rolls."""
+    h, w = arrays[0].shape[1:3]
+    ny = rng.choice([rng.randint(max(h // 16, 1)),
+                     h - rng.randint(max(h // 16, 1))])
+    nx = rng.choice([rng.randint(max(w // 16, 1)),
+                     w - rng.randint(max(w // 16, 1))])
+    flip = rng.rand() > 0.5
+
+    def roll(a):
+        a = np.roll(np.asarray(a), (int(ny), int(nx)), axis=(1, 2))
+        return np.ascontiguousarray(a[:, :, ::-1] if flip else a)
+    return [roll(a) for a in arrays]
+
+
+def finetune(cfg: Config, models: ModelBundle, ref_labels, ref_images,
+             seed: int = 0) -> Tuple[TrainState, List[Dict[str, torch.Tensor]]]:
+    """Adapt `models` in place to the references (B, K, H, W, C), numpy on
+    the host: labels as the dataset gives them (class indices for street),
+    images in [-1, 1].  The models must hold the discriminators
+    (build_models with cfg.finetune).  Returns the finetune's TrainState
+    and each step's losses (0-d tensors on the models' device)."""
+    if cfg.n_shot > 1:
+        raise NotImplementedError(
+            "test-time finetune at n_shot > 1 is not ported yet (ROADMAP.md A.6: "
+            "the differentiable K > 1 attention)")
+    ft_cfg = cfg.replace(finetune=True)
+    mask = finetune_mask(models.netG)
+    params = dict(models.netG.named_parameters())
+    state = TrainState(ft_cfg, models, params_G=[p for n, p in params.items() if mask[n]])
+    frozen = [p for n, p in params.items() if not mask[n] and p.requires_grad]
+    device = next(models.netG.parameters()).device
+    on = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
+    ref_labels = np.asarray(ref_labels, np.float32)
+    ref_images = np.asarray(ref_images, np.float32)
+    refs = dict(ref_labels=on(ref_labels), ref_images=on(ref_images),
+                flow_gt=[None, None], conf_gt=[None, None])
+    flags = StepFlags(warp_prev=False, has_prev=False)
+    rng = np.random.RandomState(seed)
+    history = []
+    for p in frozen:
+        p.requires_grad_(False)
+    try:
+        for _ in range(cfg.finetune_iters):
+            idx = rng.randint(ref_labels.shape[1])
+            tgt_label, tgt_image = random_roll_np(
+                [ref_labels[:, idx], ref_images[:, idx]], rng)
+            batch = dict(refs, tgt_label=on(tgt_label), tgt_image=on(tgt_image))
+            _, losses, _ = train_step(ft_cfg, state, batch, init_prevs(ft_cfg, batch),
+                                      flags, compute_dtype=cfg.compute_dtype)
+            history.append(losses)
+    finally:
+        for p in frozen:
+            p.requires_grad_(True)
+    return state, history

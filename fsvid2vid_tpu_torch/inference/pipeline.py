@@ -11,6 +11,8 @@ runs the forward from the label-independent encode_reference_multi cache.
 
 Frames, labels and references are channel-last, as in the JAX package:
 labels (B, H, W, Cl), references (B, K, H, W, C), frames (B, H, W, 3).
+Street labels (label_nc > 0) are class indices, Cl = 1, one-hot encoded on
+the device as they enter (`encode_label`, reference encode_input).
 Inputs may be numpy arrays or tensors; they are moved to the generator's
 device.  `compute_dtype="bfloat16"` runs the convolutions, matrix products
 and the attention kernel in bf16 under autocast; outputs are float32.
@@ -25,7 +27,7 @@ import torch
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.inference.fold import fold_spectral_norm
 from fsvid2vid_tpu_torch.models.generator import FewShotGenerator
-from fsvid2vid_tpu_torch.models.input_process import use_valid_labels
+from fsvid2vid_tpu_torch.models.input_process import encode_label, use_valid_labels
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -52,6 +54,10 @@ class _Runner:
 
     def tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def label(self, x) -> torch.Tensor:
+        """A label as the generator takes it: encoded, then valid."""
+        return use_valid_labels(self.cfg, encode_label(self.cfg, self.tensor(x)))
 
     def context(self):
         stack = contextlib.ExitStack()
@@ -101,13 +107,13 @@ class InferencePipeline:
     def reset(self, ref_labels, ref_images, first_label=None):
         """t = 0: cache the reference encoding."""
         cfg, run = self.cfg, self._run
-        ref_labels = use_valid_labels(cfg, run.tensor(ref_labels))
+        ref_labels = run.label(ref_labels)
         ref_images = run.tensor(ref_images)
         self._refs = (ref_labels, ref_images)
         if first_label is None:
             first_label = torch.zeros_like(ref_labels[:, 0])
         else:
-            first_label = use_valid_labels(cfg, run.tensor(first_label))
+            first_label = run.label(first_label)
         with run.context():
             self.cache = run.encode(ref_labels, ref_images, first_label)
         b, _, h, w, cl = ref_labels.shape
@@ -124,7 +130,7 @@ class InferencePipeline:
         if self._refs is None:
             raise RuntimeError("call reset() first")
         cfg, run = self.cfg, self._run
-        label = use_valid_labels(cfg, run.tensor(label))
+        label = run.label(label)
         has_prev = self.t > 0
         with run.context():
             out = run.synth(self.cache, label, *self._refs,
@@ -150,8 +156,8 @@ def run_sequence(cfg: Config, netG: FewShotGenerator, labels, ref_labels,
     warped reference); later frames carry the prevs ring buffer, which
     starts as frame 0 tiled over the n_frames_G - 1 slots."""
     run = _Runner(cfg, netG, compute_dtype)
-    labels = use_valid_labels(cfg, run.tensor(labels))
-    ref_labels = use_valid_labels(cfg, run.tensor(ref_labels))
+    labels = run.label(labels)
+    ref_labels = run.label(ref_labels)
     ref_images = run.tensor(ref_images)
     n = max(1, cfg.n_frames_G - 1)
     frames = []

@@ -2,9 +2,12 @@
 fsvid2vid_tpu/models/input_process.py, reference input_process.py).
 
 Channel-last like the public layout of the pipeline and of the train step.
-For face and street configurations `use_valid_labels` is the identity and
-there is no foreground mask.  Pose labels carry the DensePose part index in
-channel 2, scaled to [-1, 1]; the body-part and face masks derive from it.
+Street labels (label_nc > 0) arrive as (..., H, W, 1) class indices and are
+one-hot encoded on the device (`encode_label`) wherever a label enters the
+model.  For face and street configurations `use_valid_labels` is the
+identity and there is no foreground mask.  Pose labels carry the DensePose
+part index in channel 2, scaled to [-1, 1]; the body-part and face masks
+derive from it.
 """
 from __future__ import annotations
 
@@ -43,6 +46,18 @@ def smoothed_face_mask(pose: torch.Tensor) -> torch.Tensor:
     counts (reference loss_collector.py:177-178): (B, H, W) -> (B, H, W, 1)."""
     face = get_face_mask(pose)[:, None]
     return avg_pool(face, 15, 1, 7).permute(0, 2, 3, 1)
+
+
+def encode_label(cfg: Config, label: torch.Tensor) -> torch.Tensor:
+    """One-hot encode class-index label maps when label_nc > 0, else return
+    the label as it is (JAX input_process.py:24 `encode_label`; reference
+    input_process.py:25-45 `encode_input`).  (..., H, W, 1) indices ->
+    (..., H, W, label_nc) f32, the rows of an identity matrix as in the JAX
+    function, so the two agree bit for bit."""
+    if cfg.label_nc == 0:
+        return label
+    idx = label[..., 0].long()
+    return torch.eye(cfg.label_nc, dtype=torch.float32, device=label.device)[idx]
 
 
 def use_valid_labels(cfg: Config, pose):

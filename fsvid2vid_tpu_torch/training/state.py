@@ -14,7 +14,7 @@ norm statistics and spectral u / v stay f32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Iterable, Optional
 
 import torch
 import torch.nn as nn
@@ -98,9 +98,12 @@ def ttur_lrs(cfg: Config, base_lr: float):
 
 
 class TrainState:
-    """The models, their two optimizers and the step count."""
+    """The models, their two optimizers and the step count.  `params_G`
+    names the generator parameters opt_G trains (all of netG's by default;
+    test-time finetune passes its subset)."""
 
-    def __init__(self, cfg: Config, models: ModelBundle):
+    def __init__(self, cfg: Config, models: ModelBundle,
+                 params_G: Optional[Iterable[nn.Parameter]] = None):
         if models.netD is None:
             raise ValueError("TrainState needs the discriminators: build the "
                              "models with is_train or finetune set")
@@ -109,7 +112,9 @@ class TrainState:
         betas = (cfg.beta1, 0.999) if cfg.no_TTUR else (0.0, cfg.beta2)
         g_lr, d_lr = ttur_lrs(cfg, cfg.lr)
         params_D = [p for d in models.discriminators() for p in d.parameters()]
-        self.opt_G = torch.optim.Adam(models.netG.parameters(), lr=g_lr, betas=betas)
+        if params_G is None:
+            params_G = models.netG.parameters()
+        self.opt_G = torch.optim.Adam(params_G, lr=g_lr, betas=betas)
         self.opt_D = torch.optim.Adam(params_D, lr=d_lr, betas=betas)
         self.step = 0
 

@@ -6,7 +6,10 @@ One call processes one frame of the batch's sequences: the discriminator
 update on detached generations, the generator update against the updated
 discriminator, then the detached advance of the previous-frames buffers.
 The batch and the buffers keep the JAX package's channels-last layouts; the
-networks and the losses run NCHW.
+networks and the losses run NCHW.  With label_nc > 0 (street) the batch's
+labels are class indices, Cl = 1, which the step one-hot encodes into
+label_nc channels before anything else sees them (`encode_label`); the
+previous-label buffer holds the encoded labels.
 
   batch: tgt_label (B, H, W, Cl), tgt_image (B, H, W, 3),
          ref_labels (B, K, H, W, Cl), ref_images (B, K, H, W, 3), and
@@ -43,7 +46,7 @@ from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.losses import collector as lc
 from fsvid2vid_tpu_torch.models.generator import pick_ref
 from fsvid2vid_tpu_torch.models.input_process import (
-    combine_fg_mask, get_fg_mask, use_valid_labels)
+    combine_fg_mask, encode_label, get_fg_mask, use_valid_labels)
 from fsvid2vid_tpu_torch.models.remat import remat
 from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
 
@@ -133,8 +136,30 @@ def generate_images(cfg: Config, models: ModelBundle, batch, prevs,
     return outputs, masks, refs
 
 
+def _from_start(net):
+    """`net` applied as the JAX step applies a discriminator: every pass of
+    one loss computation starts from the buffers (spectral u / v) that the
+    computation began with, as each JAX apply reads the same aux_D, and the
+    buffers end one advance ahead however many passes ran (two when the raw
+    image is scored beside the final one, as on street's temporal frames)."""
+    if net is None:
+        return None
+    start = []
+
+    def apply(x):
+        with torch.no_grad():
+            if start:
+                for b, value in start:
+                    b.copy_(value)
+            else:
+                start.extend((b, b.clone()) for b in net.buffers())
+        return net(x)
+    return apply
+
+
 def _applies(cfg: Config, models: ModelBundle, with_vgg: bool):
-    applies = {"D": models.netD, "DT": models.netDT, "Df": models.netDf, "vgg": None}
+    applies = {"D": _from_start(models.netD), "DT": _from_start(models.netDT),
+               "Df": _from_start(models.netDf), "vgg": None}
     if with_vgg and models.vgg is not None:
         def vgg_apply(x):   # f32 outside autocast, as the JAX step runs it
             with torch.autocast(x.device.type, enabled=False):
@@ -205,8 +230,12 @@ def _d_losses(cfg, models, generated, batch_n, prevs, flags, outputs, masks, ref
 
 
 def _prepare(cfg, state: TrainState, batch, flags: StepFlags):
+    """The models in train mode, the batch with its labels encoded
+    (reference encode_input), and the NCHW views the losses take."""
     if flags.use_pool and not {"pool_fake", "pool_mask"} <= set(batch):
         raise ValueError("use_pool needs pool_fake and pool_mask in the batch")
+    batch = dict(batch, tgt_label=encode_label(cfg, batch["tgt_label"]),
+                 ref_labels=encode_label(cfg, batch["ref_labels"]))
     models = state.models
     models.netG.train()
     for d in models.discriminators():
@@ -215,7 +244,7 @@ def _prepare(cfg, state: TrainState, batch, flags: StepFlags):
     batch_n = dict(tgt_image=_nchw(batch["tgt_image"]),
                    tgt_label=_nchw(batch["tgt_label"]), flow_gt=gt("flow_gt"),
                    conf_gt=gt("conf_gt"))
-    return models, batch_n
+    return models, batch, batch_n
 
 
 def _detached(outputs, batch, flags: StepFlags):
@@ -279,7 +308,7 @@ def train_step(cfg: Config, state: TrainState, batch, prevs, flags: StepFlags,
     forward.  Updates `state` in place; returns (new_prevs, losses, visuals)
     with losses a dict of 0-d f32 tensors under the reference's names plus
     G_total and D_total."""
-    models, batch_n = _prepare(cfg, state, batch, flags)
+    models, batch, batch_n = _prepare(cfg, state, batch, flags)
     with _autocast(batch_n["tgt_image"].device, compute_dtype):
         outputs, masks, refs = generate_images(cfg, models, batch, prevs, flags)
         d = _d_losses(cfg, models, _detached(outputs, batch, flags), batch_n, prevs,
@@ -298,7 +327,7 @@ def train_step_faithful(cfg: Config, state: TrainState, batch, prevs,
                         flags: StepFlags, compute_dtype: str = "float32"):
     """The reference's alternation with two generator forwards per step (see
     the module docstring).  Same arguments and results as `train_step`."""
-    models, batch_n = _prepare(cfg, state, batch, flags)
+    models, batch, batch_n = _prepare(cfg, state, batch, flags)
     device = batch_n["tgt_image"].device
     with _autocast(device, compute_dtype):
         with torch.no_grad():

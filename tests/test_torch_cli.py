@@ -2,13 +2,16 @@
 fsvid2vid_tpu_torch.cli.train --device cpu` at tests/test_cli.py's tiny
 flags on a synthetic face dataset, then `python -m
 fsvid2vid_tpu_torch.cli.test` on its checkpoint; the same for pose
-(`--dataset_mode fewshot_pose` with the face discriminator and remat) on a
-synthetic pose dataset; every flag the port cannot honour yet, and a missing
-card, exit non-zero with a message naming why."""
+(`--dataset_mode fewshot_pose` with the face discriminator and remat) and
+street (`--dataset_mode fewshot_street`, one-hot labels) on synthetic
+datasets, and `cli.test --finetune` from the street checkpoint with its
+discriminators restored; every flag the port cannot honour yet, and a
+missing card, exit non-zero with a message naming why."""
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -96,7 +99,6 @@ UNPORTED = [
     (["--distributed"], "A.12"), (["--coordinator_address", "h:1"], "A.12"),
     (["--num_processes", "2"], "A.12"), (["--process_id", "1"], "A.12"),
     (["--adaptive_conv"], "A.2"), (["--refine_face"], "A.7"),
-    (["--dataset_mode", "fewshot_street"], "A.9"),
 ]
 
 
@@ -114,7 +116,8 @@ def test_unported_flags_exit_naming_their_item(data, tmp_path, capsys, flags, it
 # flags the port refused until the pose slice, and the config field each sets
 POSE_FLAGS = {"remat": (["--remat"], "remat"),
               "add_face_D": (["--add_face_D"], "add_face_D"),
-              "fewshot_pose": (["--dataset_mode", "fewshot_pose"], "is_pose")}
+              "fewshot_pose": (["--dataset_mode", "fewshot_pose"], "is_pose"),
+              "fewshot_street": (["--dataset_mode", "fewshot_street"], "is_street")}
 
 
 @pytest.mark.parametrize("name", list(POSE_FLAGS))
@@ -126,6 +129,9 @@ def test_pose_flags_are_accepted_and_reach_the_config(data, tmp_path, name):
     assert getattr(cfg, field) is True
     if name == "fewshot_pose":   # the pose preset: 6-channel labels, remat on
         assert (cfg.input_nc, cfg.aspect_ratio, cfg.remat, cfg.add_face_D) == (6, 0.5, True, True)
+    elif name == "fewshot_street":   # the street preset: 20 classes at 2:1, random crops
+        assert (cfg.label_nc, cfg.gen_input_nc, cfg.aspect_ratio, cfg.resize_or_crop) == (
+            20, 20, 2.0, "random_scale_and_crop")
     else:
         assert not cfg.is_pose
 
@@ -156,16 +162,93 @@ def test_pose_train_then_test(tmp_path):
                          "--seq_path", os.path.join(data, "test_images", "0001/"),
                          "--ref_img_path", os.path.join(data, "test_images", "0002/")]
                         + POSE + TINY)
-    images = os.listdir(os.path.join(web, "images"))
+    images = os.listdir(os.path.join(web.web_dir, "images"))
     assert sum("synthesized" in i for i in images) == 2
     assert sum("input_label" in i for i in images) == 2
 
 
-def test_finetune_exits_naming_its_item(capsys):
+STREET = ["--dataset_mode", "fewshot_street", "--adaptive_spade"]
+
+
+@pytest.fixture(scope="module")
+def street_run(tmp_path_factory):
+    """Two epochs of street training (the second temporal) on worker
+    threads, on a synthetic street dataset of 64 x 128 frames."""
+    from fsvid2vid_tpu_torch.data.synthetic import write_street_dataset
+    root = tmp_path_factory.mktemp("street")
+    data = write_street_dataset(str(root / "data"), seed=2, n_seqs=2, n_frames=4,
+                                size=(64, 128))
+    ckpt = str(root / "ckpt")
+    run = cli_train.main(["--name", "street", "--dataroot", data, "--checkpoints_dir", ckpt,
+                          "--batchSize", "2", "--niter", "2", "--niter_decay", "0",
+                          "--niter_single", "1", "--no_flow_gt", "--steps_per_epoch", "2",
+                          "--num_workers", "2", "--display_freq", "2", "--print_freq", "2",
+                          "--device", "cpu"] + STREET + TINY)
+    return data, ckpt, run
+
+
+def street_test_argv(data, ckpt, results, *extra):
+    return (["--name", "street", "--dataroot", data, "--checkpoints_dir", ckpt,
+             "--results_dir", results, "--device", "cpu", "--how_many", "3",
+             "--seq_path", os.path.join(data, "test_images", "0001/"),
+             "--ref_img_path", os.path.join(data, "test_images", "0002/")]
+            + STREET + TINY + list(extra))
+
+
+def test_street_train_then_test(street_run, tmp_path):
+    """The street preset's one-hot labels through the trainer (finite
+    losses, label maps in the display images), then 3 frames of
+    inference from `latest`."""
+    data, ckpt, run = street_run
+    assert run.cfg.is_street and run.cfg.label_nc == 20
+    assert run.trainer.models.netG.ref_label_first.conv.weight_orig.shape[1] == 20
+    assert sorted(run.trainer.epoch_metrics) == [1, 2]
+    for metrics in run.trainer.epoch_metrics.values():
+        assert all(np.isfinite(v) for v in metrics.values())
+        assert metrics["D_real"] > 0 and metrics["G_GAN"] > 0
+    shown = os.listdir(os.path.join(ckpt, "street", "web", "images"))
+    assert any("input_label" in f for f in shown)
+    res = cli_test.main(street_test_argv(data, ckpt, str(tmp_path / "results")))
+    images = os.listdir(os.path.join(res.web_dir, "images"))
+    assert sum("synthesized" in i for i in images) == 3
+    assert sum("input_label" in i for i in images) == 3
+    assert res.nonfinite_frames == [] and res.finetune_seconds is None
+    assert len(res.frame_seconds) == 3 and res.first_frame_seconds > 0
+
+
+def test_finetune_restores_g_and_the_discriminators(street_run, tmp_path, monkeypatch):
+    """--finetune builds the discriminators, restores them with G from the
+    checkpoint before the finetune starts (as JAX test.py restores the
+    whole state), runs finetune_iters steps, then synthesises."""
+    from fsvid2vid_tpu_torch.inference import finetune as ft_lib
+    from fsvid2vid_tpu_torch.training.checkpoint import load
+    data, ckpt, run = street_run
+    stored = load(run.cfg)["networks"]
+    real, seen = ft_lib.finetune, {}
+
+    def checked(cfg, models, *args, **kw):
+        for key, net in (("G", models.netG), ("D", models.netD), ("DT", models.netDT)):
+            state = net.state_dict()
+            seen[key] = set(state) == set(stored[key]) and all(
+                torch.equal(v, stored[key][k]) for k, v in state.items())
+        seen["finetune"] = cfg.finetune
+        return real(cfg, models, *args, **kw)
+    monkeypatch.setattr(ft_lib, "finetune", checked)
+    res = cli_test.main(street_test_argv(data, ckpt, str(tmp_path / "results"), "--finetune"))
+    assert seen == {"G": True, "D": True, "DT": True, "finetune": True}
+    assert len(res.finetune_losses) == run.cfg.finetune_iters == 100
+    assert all(np.isfinite(v) for losses in res.finetune_losses for v in losses.values())
+    assert res.finetune_losses[-1]["D_real"] > 0
+    assert res.finetune_seconds > 0 and res.nonfinite_frames == []
+    images = os.listdir(os.path.join(res.web_dir, "images"))
+    assert sum("synthesized" in i for i in images) == 3
+
+
+def test_finetune_above_one_reference_exits_naming_its_item(capsys):
     with pytest.raises(SystemExit) as e:
-        cli_test.main(["--finetune", "--device", "cpu"])
+        cli_test.main(["--finetune", "--n_shot", "2", "--device", "cpu"])
     assert e.value.code != 0
-    assert "ROADMAP.md A.11" in capsys.readouterr().err
+    assert "ROADMAP.md A.6" in capsys.readouterr().err
 
 
 def test_without_device_and_card_the_command_fails(data, tmp_path):

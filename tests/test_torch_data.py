@@ -159,15 +159,15 @@ def test_loader_stops_its_threads_when_the_consumer_stops(data_root):
 
 @pytest.mark.parametrize("mode", ["fewshot_pose", "fewshot_street"])
 def test_unported_datasets_raise(data_root, mode):
-    """Street is not ported yet and raises naming its item; pose is ported
-    (tests/test_torch_pose_data.py) and its dataset is registered."""
-    cfg = face_config(dataroot=data_root).replace(dataset_mode=mode)
-    if mode == "fewshot_pose":
-        assert tloader.DATASETS[mode].__name__ == "FewshotPoseDataset"
-        assert mode not in tloader.NOT_PORTED
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
-        tloader.create_dataset(cfg)
+    """Pose and street, the datasets the port once refused, are ported
+    (tests/test_torch_pose_data.py, tests/test_torch_street_data.py) and
+    registered: create_dataset names no ROADMAP item for them."""
+    name = {"fewshot_pose": "FewshotPoseDataset",
+            "fewshot_street": "FewshotStreetDataset"}[mode]
+    assert tloader.DATASETS[mode].__name__ == name
+    with pytest.raises(ValueError, match="unknown dataset_mode"):
+        tloader.create_dataset(face_config(dataroot=data_root).replace(
+            dataset_mode=mode.replace("fewshot", "unknown")))
 
 
 @pytest.mark.parametrize("bw", [1, 2])
