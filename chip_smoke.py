@@ -31,7 +31,14 @@ to end at the full width of face_config:
   * street: a small street model's step on the card against the CPU, and
     the train and test CLIs at 512 x 256, batch 6, one-hot labels
     (`phase_street_cli`, the teacher's cost volume on 32 x 64 maps of the
-    real images).
+    real images);
+  * K > 1 training and finetune, whose attention is the differentiable
+    chunked path and never the forward-only kernel: the chunked attention
+    on its own beside the kernel at the same shape, a small K = 3 model's
+    step on the card against the CPU, `cli.train --n_shot 8` for face 256
+    (`phase_cli_k8`), then `cli.test --n_shot 8 --finetune` at 512 px on
+    its checkpoint, 100 steps, and 8 frames served from the finetuned
+    generator, one attention-kernel launch each (`phase_finetune_k8`).
 
 Each phase prints one JSON line; the kernels line comes before the last
 line, and the last line is
@@ -101,6 +108,12 @@ TIMING_TURNS = {"bfloat16": ("sm90", "cuda_core", "cuda_core", "sm90"),
 SLICE_FRAME_TOL = 2e-3
 # small K = 3 model, card (kernel) vs CPU (plain version), f32 frames
 SMALL_FRAME_TOL = 1e-4
+# K = 8 slice, bf16 frames: where the f32 frame's top two attention masses
+# differ by more than this share of the mass, the bf16 frame must pick the
+# same reference.  bf16 moves the encoders' features by ~2^-8 relative, and
+# the masses by far less than 5 % of the mass; nearer ties may flip (on an
+# H100 with random weights, at margins of 0.02-0.17 % of the mass).
+REF_IDX_MARGIN = 0.05
 N_FRAMES = 4
 
 
@@ -442,25 +455,29 @@ def build(torch, cfg, seed, device="cuda"):
 def run_frames(torch, pipe, labels, ref_labels, ref_images):
     """reset + one step per label, twice: the first pass warms up (cuDNN's
     algorithm choice, allocator); per-frame ms of the second pass, on the
-    host clock around work that ends in a synchronise."""
+    host clock around work that ends in a synchronise.  Returns the frames,
+    their ms, the reset's ms, and per frame ref_idx and the references'
+    attention masses (B, K) as lists (None at K = 1)."""
+    as_list = lambda t: None if t is None else t.tolist()
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pipe.reset(ref_labels, ref_images, labels[0])
         torch.cuda.synchronize()
         reset_ms = 1e3 * (time.perf_counter() - t0)
-        frames, ms, ref_idx = [], [], []
+        frames, ms, ref_idx, masses = [], [], [], []
         for label in labels:
             t0 = time.perf_counter()
             out = pipe.step(label)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
             frames.append(out["fake_image"])
-            ref_idx.append(None if out["ref_idx"] is None else out["ref_idx"].tolist())
+            ref_idx.append(as_list(out["ref_idx"]))
+            masses.append(as_list(out["atn"]))
     frames = torch.stack(frames)
     if not torch.isfinite(frames).all():
         raise AssertionError("non-finite frames")
-    return frames, ms, reset_ms, ref_idx
+    return frames, ms, reset_ms, ref_idx, masses
 
 
 def profile_step(torch, pipe, label, find=None):
@@ -500,6 +517,20 @@ def profile_call(torch, fn, find=None):
     return res
 
 
+def bf16_ref_idx_check(masses_f32, ref_idx_bf16):
+    """Per frame and sample, [frame, sample, f32 margin between the top two
+    masses as a share of all the mass, f32's pick, bf16's pick]; returns
+    all of them, those held to the bound (margin > REF_IDX_MARGIN) and the
+    held ones whose picks differ."""
+    rows = []
+    for t, (frame, idx) in enumerate(zip(masses_f32, ref_idx_bf16)):
+        for b, m in enumerate(frame):
+            top = sorted(m)
+            rows.append([t, b, (top[-1] - top[-2]) / sum(m), m.index(top[-1]), idx[b]])
+    held = [r for r in rows if r[2] > REF_IDX_MARGIN]
+    return {"frames": rows, "held": len(held), "flips": [r for r in held if r[3] != r[4]]}
+
+
 def phase_slice(torch):
     """K = 8 at 512 px, full-width face_config: bf16 frames, then f32."""
     from fsvid2vid_tpu_torch.config import face_config
@@ -514,10 +545,8 @@ def phase_slice(torch):
            "n_adaptive_layers": cfg.n_adaptive_layers, "nff": cfg.nff,
            "n_blocks_F": cfg.n_blocks_F, "n_shot": cfg.n_shot, "size": cfg.fine_size,
            "frames_per_dtype": 2 * N_FRAMES}
+    zero_b1(ak)
     counts = ak.flash_ref_attention.launches_by_route
-    ak.flash_ref_attention.launches = 0
-    for route in counts:
-        counts[route] = 0
     out, by_dtype = {}, {}
     for dtype in ("bfloat16", "float32"):
         before = dict(counts)
@@ -527,9 +556,9 @@ def phase_slice(torch):
     launches = ak.flash_ref_attention.launches
     res.update(launches=launches, launches_by_route=dict(counts),
                launches_by_dtype=by_dtype)
-    for dtype, (frames, ms, reset_ms, ref_idx) in out.items():
+    for dtype, (frames, ms, reset_ms, ref_idx, masses) in out.items():
         res[dtype] = {"frame_ms": ms, "reset_ms": reset_ms, "ref_idx": ref_idx,
-                      "frame_std": frames.std().item()}
+                      "masses": masses, "frame_std": frames.std().item()}
     if launches != 4 * N_FRAMES:
         raise AssertionError(f"kernel launches {launches} != frames {4 * N_FRAMES}")
     # each dtype's frames on its own tensor-core route only
@@ -557,9 +586,35 @@ def phase_slice(torch):
     res.update(f32_vs_plain_max_abs_err=err, tol=SLICE_FRAME_TOL)
     bf_err = (out["bfloat16"][0] - out["float32"][0]).abs().max().item()
     res["bf16_vs_f32_max_abs_err"] = bf_err
+    # bf16 frames pick f32's reference wherever f32's top two attention
+    # masses lie apart by more than REF_IDX_MARGIN of the mass.  Random
+    # weights leave the 8 masses nearly tied (top two within ~0.2 % of the
+    # mass), where either pick is right, so the frames run once more with
+    # the key encoders holding the query encoders' weights: the reference
+    # whose label the driving labels follow (reference 1, seeded_inputs)
+    # then draws the attention, as in a trained model
+    ref_idx_check = {"random": bf16_ref_idx_check(out["float32"][4], out["bfloat16"][3])}
+    with torch.no_grad():
+        for part in ["first"] + list(range(cfg.n_downsample_A)):
+            getattr(g, f"atn_key_{part}").load_state_dict(
+                getattr(g, f"atn_query_{part}").state_dict())
+    before = dict(counts)
+    matched = {d: run_frames(torch, InferencePipeline(cfg, g, compute_dtype=d), labels,
+                             ref_labels, ref_images) for d in ("float32", "bfloat16")}
+    res["matched_launches_by_route"] = {r: counts[r] - before[r] for r in counts}
+    res["matched"] = {d: {"ref_idx": m[3], "masses": m[4]} for d, m in matched.items()}
+    res["matched"]["bf16_vs_f32_max_abs_err"] = (
+        matched["bfloat16"][0] - matched["float32"][0]).abs().max().item()
+    ref_idx_check["matched"] = bf16_ref_idx_check(matched["float32"][4],
+                                                  matched["bfloat16"][3])
+    res.update(bf16_ref_idx_margin=REF_IDX_MARGIN, bf16_ref_idx=ref_idx_check)
     emit(res)
     if out["float32"][3] != plain[3]:
         raise AssertionError(f"ref_idx differs: {out['float32'][3]} vs {plain[3]}")
+    flips = [f for c in ref_idx_check.values() for f in c["flips"]]
+    if flips or not sum(c["held"] for c in ref_idx_check.values()):
+        raise AssertionError(f"bf16 ref_idx against f32's where the f32 masses lie apart: "
+                             f"{ref_idx_check}")
     if err > SLICE_FRAME_TOL:
         raise AssertionError(f"K=8 frames: kernel vs plain {err} > {SLICE_FRAME_TOL}")
     del g
@@ -622,10 +677,10 @@ TEMPORAL_FRAMES = 3
 SMALL_STEP_RTOL = 1e-3
 
 
-def train_data(torch, cfg, b, t, seed, device="cuda"):
-    """A seeded batch of sequences: labels and images (B, T, H, W, C), one
-    reference (B, 1, H, W, C); frame t is frame 0 shifted by t pixels plus
-    noise, so consecutive frames are related."""
+def train_data(torch, cfg, b, t, seed, device="cuda", n_refs=1):
+    """A seeded batch of sequences: labels and images (B, T, H, W, C),
+    `n_refs` references (B, K, H, W, C); frame t is frame 0 shifted by t
+    pixels plus noise, so consecutive frames are related."""
     g = torch.Generator().manual_seed(seed)
     h, w, cl = cfg.height, cfg.width, cfg.gen_input_nc
     import torch.nn.functional as F
@@ -635,16 +690,17 @@ def train_data(torch, cfg, b, t, seed, device="cuda"):
     frames = lambda base, c: torch.stack(
         [base[..., i:i + w] + 0.05 * torch.randn(b, c, h, w, generator=g)
          for i in range(t)], 1).movedim(2, -1)
+    refs = lambda c: torch.stack([smooth(c)[..., :w].movedim(1, -1) for _ in range(n_refs)], 1)
     seq = dict(tgt_label=frames(base_l, cl), tgt_image=torch.tanh(frames(base_i, 3)),
-               ref_labels=smooth(cl)[..., :w].movedim(1, -1)[:, None],
-               ref_images=torch.tanh(smooth(3)[..., :w]).movedim(1, -1)[:, None])
+               ref_labels=refs(cl), ref_images=torch.tanh(refs(3)))
     return {k: v.contiguous().to(device) for k, v in seq.items()}
 
 
 def run_train_sequence(torch, cfg, state, teacher, step_fn, seq, epoch, dtype,
                        log, profile=False):
     """What the trainer does with one batch of sequences: one teacher call,
-    then one step per frame.  Returns the number of flow computations."""
+    then one step per frame (with `profile`, the last under torch.profiler).
+    Returns the number of flow computations."""
     from fsvid2vid_tpu_torch.training.step import StepFlags, init_prevs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -762,21 +818,42 @@ def phase_train(torch):
     return res
 
 
-def small_step_card_vs_cpu(torch, cfg, seq):
+def small_step_card_vs_cpu(torch, cfg, seq, prepare=None):
     """A small model's first temporal f32 train step, teacher included, on
     the card (B2 kernel) and on the CPU (plain version), from one seed and
     one 2-frame batch `seq` (channel-last, on the CPU; class-index labels
-    for street, which the step one-hot encodes).  Returns each device's
-    losses and teacher confidence means, and each loss's relative error."""
+    for street, which the step one-hot encodes); `prepare(models)` runs on
+    each device's models after they are built.  Returns each device's
+    losses and teacher confidence means, each loss's relative error, and
+    `updated`, per group of parameters (G, the discriminators, and G's
+    attention encoders atn_* alone at K > 1): the relative error of the
+    step's update (parameters after the step less those before), the
+    2-norm of the card's less the CPU's over all the group's tensors against
+    that of the CPU's, and the same of the gradient, read from Adam's first
+    moment (the first step's is (1 - beta1) x the gradient on both devices;
+    a tensor without one counts as zero); what G's update error would read
+    if the card had left the atn_* tensors as they were
+    (`G_if_atn_dropped`); and whether both devices picked the same
+    reference per sample.  Adam's first update is about lr x sign(gradient),
+    so the conv biases that a batch norm follows, whose gradient is zero up
+    to rounding, take updates of +-lr in a sign that rounding picks: they
+    set the update's error, and the gradient's is the tight one."""
     from fsvid2vid_tpu_torch.models.input_process import encode_label
     from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
     from fsvid2vid_tpu_torch.training.state import TrainState, build_models
     from fsvid2vid_tpu_torch.training.step import StepFlags, train_step
     from fsvid2vid_tpu_torch.training.trainer import to_device
-    losses, conf = {}, {}
+    losses, conf, params, grads, picked = {}, {}, {}, {}, {}
     for device in ("cuda", "cpu"):
         gen = torch.Generator().manual_seed(31)
-        state = TrainState(cfg, build_models(cfg, device=device, generator=gen))
+        models = build_models(cfg, device=device, generator=gen)
+        if prepare is not None:
+            prepare(models)
+        state = TrainState(cfg, models)
+        groups = {"G": list(models.netG.named_parameters()),
+                  "D": [(n, p) for d in models.discriminators() for n, p in d.named_parameters()]}
+        groups["atn"] = [(n, p) for n, p in groups["G"] if n.startswith("atn_")]
+        before = {k: [p.detach().cpu().clone() for _, p in ps] for k, ps in groups.items()}
         teacher = FlowTeacher(cfg, device=device, generator=gen)
         on = to_device(seq, torch.device(device))
         flow_gt, conf_gt = teacher(cfg, on, epoch=1)
@@ -787,11 +864,29 @@ def small_step_card_vs_cpu(torch, cfg, seq):
                      flow_gt=at(flow_gt), conf_gt=at(conf_gt))
         prevs = dict(label=encode_label(cfg, on["tgt_label"][:, 0]),
                      real=on["tgt_image"][:, 0], fake=on["tgt_image"][:, 0])
-        _, out, _ = train_step(cfg, state, batch, prevs, StepFlags(True, True))
+        _, out, visuals = train_step(cfg, state, batch, prevs, StepFlags(True, True))
         losses[device] = {k: v.item() for k, v in out.items()}
+        params[device] = {k: [p.detach().cpu() - b for (_, p), b in zip(ps, before[k])]
+                          for k, ps in groups.items() if ps}
+        moments = {**state.opt_G.state, **state.opt_D.state}
+        grads[device] = {k: [moments[p]["exp_avg"].cpu() if p in moments
+                             else torch.zeros(p.shape) for _, p in ps]
+                         for k, ps in groups.items() if ps}
+        picked[device] = visuals["ref_image"].cpu()
     rel = {k: abs(v - losses["cpu"][k]) / max(abs(losses["cpu"][k]), 1e-6)
            for k, v in losses["cuda"].items()}
-    return losses, conf, rel
+    norm = lambda ts: sum(float(t.double().square().sum()) for t in ts) ** 0.5
+    err = lambda got, want: {k: norm([a - b for a, b in zip(got[k], w)]) / norm(w)
+                             for k, w in want.items()}
+    updated = {"update": err(params["cuda"], params["cpu"]),
+               "gradient": err(grads["cuda"], grads["cpu"])}
+    if "atn" in params["cpu"]:
+        updated["G_if_atn_dropped"] = (
+            norm([a - b for (n, _), a, b in zip(groups["G"], params["cuda"]["G"],
+                                                params["cpu"]["G"]) if not n.startswith("atn_")]
+                 + params["cpu"]["atn"]) / norm(params["cpu"]["G"]))
+    updated["same_reference"] = bool(torch.equal(picked["cuda"], picked["cpu"]))
+    return losses, conf, rel, updated
 
 
 def phase_small_train(torch):
@@ -800,11 +895,11 @@ def phase_small_train(torch):
     from fsvid2vid_tpu_torch.config import face_config
     cfg = face_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
                       n_downsample_G=3, n_adaptive_layers=2, batch_size=2, niter_single=0)
-    losses, conf, rel = small_step_card_vs_cpu(
+    losses, conf, rel, updated = small_step_card_vs_cpu(
         torch, cfg, train_data(torch, cfg, 2, 2, 32, device="cpu"))
     emit({"phase": "small_train_card_vs_cpu", "losses_cuda": losses["cuda"],
           "losses_cpu": losses["cpu"], "conf_mean": conf, "max_rel_err": max(rel.values()),
-          "tol": SMALL_STEP_RTOL})
+          "tol": SMALL_STEP_RTOL, "updated_params_rel_err": updated})
     if not max(rel.values()) <= SMALL_STEP_RTOL:
         raise AssertionError(f"small train step, card vs CPU: {rel}")
 
@@ -840,9 +935,9 @@ def face_keypoints(np, rng, size, jitter=1.5):
     return (kp + rng.uniform(-jitter, jitter, kp.shape)) * s
 
 
-def write_face_dataset(root, seed):
+def write_face_dataset(root, seed, n_frames=CLI_FRAMES):
     """The face dataset layout (train_/test_ keypoints as 68 x 2 CSV, images
-    as JPEG) with CLI_SEQS sequences of CLI_FRAMES frames of CLI_IMAGE px:
+    as JPEG) with CLI_SEQS sequences of `n_frames` frames of CLI_IMAGE px:
     smooth seeded images, keypoints that drift from frame to frame."""
     import os
     import numpy as np
@@ -853,7 +948,7 @@ def write_face_dataset(root, seed):
         for sub in ("train_keypoints", "train_images", "test_keypoints", "test_images"):
             os.makedirs(os.path.join(root, sub, name), exist_ok=True)
         base = face_keypoints(np, rng, CLI_IMAGE)
-        for f in range(CLI_FRAMES):
+        for f in range(n_frames):
             kp = base + rng.uniform(-2, 2, base.shape) + f
             small = rng.randint(0, 255, (CLI_IMAGE // 16, CLI_IMAGE // 16, 3), np.uint8)
             img = Image.fromarray(small).resize((CLI_IMAGE, CLI_IMAGE), Image.BICUBIC)
@@ -1103,10 +1198,11 @@ def phase_small_pose(torch):
                       compute_dtype="float32")
     with tempfile.TemporaryDirectory(prefix="fsv_small_pose_") as tmp:
         seq = pose_batch(cfg, os.path.join(tmp, "data"), seed=51)
-    losses, conf, rel = small_step_card_vs_cpu(torch, cfg, seq)
+    losses, conf, rel, updated = small_step_card_vs_cpu(torch, cfg, seq)
     emit({"phase": "small_pose_card_vs_cpu", "size": [cfg.height, cfg.width],
           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "conf_mean": conf,
-          "max_rel_err": max(rel.values()), "tol": SMALL_POSE_RTOL})
+          "max_rel_err": max(rel.values()), "tol": SMALL_POSE_RTOL,
+          "updated_params_rel_err": updated})
     if not max(rel.values()) <= SMALL_POSE_RTOL:
         raise AssertionError(f"small pose step, card vs CPU: {rel}")
     if not all(losses["cuda"][k] > 0 for k in ("Df_real", "Df_fake", "Gf_GAN")):
@@ -1297,11 +1393,12 @@ def phase_small_street(torch):
                                 num_workers=0)
         loader.set_epoch_frames(2)
         seq = next(iter(loader.epoch(2)))
-    losses, conf, rel = small_step_card_vs_cpu(torch, cfg, seq)
+    losses, conf, rel, updated = small_step_card_vs_cpu(torch, cfg, seq)
     emit({"phase": "small_street_card_vs_cpu", "size": [cfg.height, cfg.width],
           "labels": sorted(set(seq["tgt_label"].ravel().tolist())),
           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "conf_mean": conf,
-          "max_rel_err": max(rel.values()), "tol": SMALL_STREET_RTOL})
+          "max_rel_err": max(rel.values()), "tol": SMALL_STREET_RTOL,
+          "updated_params_rel_err": updated})
     if not max(rel.values()) <= SMALL_STREET_RTOL:
         raise AssertionError(f"small street step, card vs CPU: {rel}")
     if not all(losses["cuda"][k] > 0 for k in ("F_Warp", "F_Mask", "D_real", "G_GAN")):
@@ -1541,6 +1638,354 @@ def phase_small_finetune(torch):
         raise AssertionError(f"small finetune, card vs CPU: {rel}")
 
 
+# ----------------------------------------------------------------------
+# K > 1 training and test-time finetune through the chunked attention, and
+# K = 8 serving on B1 after a finetune at 512 px
+# ----------------------------------------------------------------------
+K8 = 8
+K8_FRAMES = 48          # frames per sequence: from any start frame, 8 or more lie 14 away
+K8_REF_IDS = ",".join(str(5 * i) for i in range(K8))
+K8_TEST_FRAMES = 8
+K8_TRAIN_SHAPE = dict(b=TRAIN_BATCH, hw=64 * 64, n_refs=K8, c=128, has_lf=True)
+# small K = 3 model at 64 px: 4 query chunks of 64 (3 x 16 x 16 keys)
+SMALL_K3_CHUNK_ELEMS = 3 * 16 * 16 * 64
+SMALL_K3_RTOL = 1e-3    # card vs CPU: losses, and G's, D's and atn_*'s gradients
+# and their updates: the conv biases that a batch norm follows take +-lr
+# updates in a sign that rounding picks (small_step_card_vs_cpu), at most
+# 2 x their share of the update's norm; an update left out reads 1, one of
+# the wrong sign 2
+SMALL_K3_UPDATE_TOL = 0.5
+# the chunked attention against the same function in f64 on the card, max
+# abs error on outputs (|out| < ~5) / on the masses (< 1): f32 sums over
+# 32,768 keys grow to ~sqrt(N) * 6e-8 ~ 1e-5 relative
+CHUNKED_TOL = (1e-4, 2e-5)
+
+
+def zero_b1(ak):
+    ak.flash_ref_attention.launches = 0
+    for route in ak.flash_ref_attention.launches_by_route:
+        ak.flash_ref_attention.launches_by_route[route] = 0
+
+
+def b1_launches(ak):
+    return dict(ak.flash_ref_attention.launches_by_route)
+
+
+def sharpen_attention(torch, cfg, netG):
+    """The last key and query norms x4 (energies x16), as `build` does, so
+    that the K masses have a clear favourite at random init."""
+    with torch.no_grad():
+        for kind in ("key", "query"):
+            getattr(netG, f"atn_{kind}_{cfg.n_downsample_A - 1}").bn.weight.mul_(4)
+
+
+def phase_small_k3_train(torch):
+    """A small face model at K = 3 (64 px, batch 2): its first temporal f32
+    train step, teacher included, on the card against the CPU from one seed
+    (`small_step_card_vs_cpu`), the generator's attention on its train-mode
+    path in 4 query chunks.  B1 is launched no time (it has no backward, and
+    train mode never calls it); B2 once per flow computation (reference and
+    previous frame) on its tensor-core route."""
+    from fsvid2vid_tpu_torch.config import face_config
+    from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    cfg = face_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
+                      n_downsample_G=3, n_adaptive_layers=2, batch_size=2, niter_single=0,
+                      n_shot=3, compute_dtype="float32")
+
+    def prepare(models):
+        models.netG.atn_chunk_elems = SMALL_K3_CHUNK_ELEMS
+        sharpen_attention(torch, cfg, models.netG)
+    zero_b1(ak)
+    zero_counts(cv)
+    losses, conf, rel, updated = small_step_card_vs_cpu(
+        torch, cfg, train_data(torch, cfg, 2, 2, 34, device="cpu", n_refs=3), prepare)
+    b1 = b1_launches(ak)
+    b2 = check_counts(cv, "small K = 3 train step", 2)
+    res = {"phase": "small_k3_train_card_vs_cpu", "n_shot": cfg.n_shot,
+           "size": [cfg.height, cfg.width], "query_chunks": 4,
+           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "conf_mean": conf,
+           "max_rel_err": max(rel.values()), "updated_params_rel_err": updated,
+           "tol": SMALL_K3_RTOL, "update_tol": SMALL_K3_UPDATE_TOL, "b1_launches": b1,
+           "b2_launches": b2}
+    emit(res)
+    if not (max(rel.values()) <= SMALL_K3_RTOL and updated["same_reference"]
+            and sorted(updated["gradient"]) == ["D", "G", "atn"]
+            and max(updated["gradient"].values()) <= SMALL_K3_RTOL
+            and max(updated["update"].values()) <= SMALL_K3_UPDATE_TOL):
+        raise AssertionError(f"small K = 3 train step, card vs CPU: {res}")
+    if any(b1.values()):
+        raise AssertionError(f"B1 launched in a train step: {b1}")
+    return res
+
+
+def phase_chunked_attention(torch, kern):
+    """The chunked attention (ops/attention_kernel.py chunked_ref_attention,
+    the path of train mode and finetune, and B1's plain version) on its own
+    at the two shapes this slice runs it: the K = 8 face-512 finetune's,
+    which is B1's slice shape (forward only, as in the finetune, where its
+    inputs come from frozen parameters), and the K = 8 face-256 training
+    step's at batch 4 (the forward alone, and forward and backward of a
+    random projection, which is the attention's part of that step).  ms by
+    CUDA events, kernels and launches of one call under torch.profiler, the
+    f32 products' FLOP and the forward's rate, B1's ms at the same shape
+    beside it (phase_kernels), and the forward at the training shape against
+    the same function in f64 on the card."""
+    from fsvid2vid_tpu_torch.ops.attention_kernel import chunked_ref_attention
+    elems = 1 << 23     # the generator's atn_chunk_elems
+    res = {"phase": "chunked_attention", "chunk_elems": elems,
+           "b1_at_finetune_shape_ms": {d: kern["slice", d]["ms"]
+                                       for d in ("bfloat16", "float32")}}
+    for name, shape in (("finetune_512_k8", SLICE), ("train_256_k8", K8_TRAIN_SHAPE)):
+        q, k, xf, lf = attention_inputs(torch, dtype=torch.float32, **shape)
+        n_refs, hw = shape["n_refs"], shape["hw"]
+        q_chunk = hw
+        while q_chunk > 1 and n_refs * hw * q_chunk > elems:
+            q_chunk //= 2
+        flops = attention_cost(shape["b"], hw, n_refs, shape["c"], True, 4)[0]
+        entry = {"shape": shape, "query_chunks": hw // q_chunk, "forward_flop": flops}
+        with torch.no_grad():
+            ox, ol, vis = chunked_ref_attention(q, k, xf, lf, n_refs, elems)
+            if name == "train_256_k8":
+                a = torch.softmax(torch.bmm(q.double(), k.double().transpose(1, 2)), -1)
+                want = (torch.bmm(a, xf.double()), torch.bmm(a, lf.double()),
+                        a.unflatten(2, (n_refs, hw)).sum(3))
+                del a
+                entry["max_abs_err_out"] = max((ox - want[0]).abs().max().item(),
+                                               (ol - want[1]).abs().max().item())
+                entry["max_abs_err_vis"] = (vis - want[2]).abs().max().item()
+                entry["tol"] = CHUNKED_TOL
+                del want
+        forward = lambda: chunked_ref_attention(q, k, xf, lf, n_refs, elems)
+        if name == "finetune_512_k8":
+            fn = forward
+        else:
+            for t in (q, k, xf, lf):
+                t.requires_grad_()
+            proj = torch.randn_like(ox)
+
+            def fn():
+                out_x, out_l, _ = forward()
+                ((out_x + out_l) * proj).sum().backward()
+        del ox, ol, vis
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        entry["forward_ms"] = cuda_ms(torch, forward, 3)
+        entry["ms"] = entry["forward_ms"] if fn is forward else cuda_ms(torch, fn, 3)
+        entry["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = profile_call(torch, fn)
+        entry.update(device_ms=prof["device_ms"], launches=prof["kernel_launches"],
+                     top=prof["top"][:5], forward_tflops=flops / entry["forward_ms"] / 1e9)
+        res[name] = entry
+        del q, k, xf, lf, fn, forward
+        torch.cuda.empty_cache()
+    res["finetune_512_k8"]["vs_b1"] = {
+        d: res["finetune_512_k8"]["ms"] / ms for d, ms in res["b1_at_finetune_shape_ms"].items()}
+    emit(res)
+    err = res["train_256_k8"]
+    if not (err["max_abs_err_out"] <= CHUNKED_TOL[0] and err["max_abs_err_vis"] <= CHUNKED_TOL[1]):
+        raise AssertionError(f"chunked attention vs f64: {err}")
+    return res
+
+
+def phase_cli_k8(torch, tmp, chunked):
+    """scripts/face/train_256.sh at --n_shot 8 through `cli.train`: face
+    256 px at full width, batch 4, bf16, VGG19 and the FlowNet2 teacher on
+    (B2 once per flow computation), 4 loader threads, on a seeded synthetic
+    face dataset of 512 px JPEGs whose sequences hold K8_FRAMES frames, so
+    that every sample finds 8 references 14 or more frames from its start:
+    one single-frame and one temporal epoch of CLI_STEPS iterations, then
+    one more temporal sequence with its last step under torch.profiler (the
+    chunked attention's part of it from `chunked`, phase_chunked_attention's
+    forward and backward at this step's shape), and the checkpoint's size
+    and save time.  B1 is launched no time.
+    The dataset and the checkpoints stay in `tmp` for phase_finetune_k8."""
+    import math
+    import os
+    import warnings
+    from fsvid2vid_tpu_torch.cli import train as cli_train
+    from fsvid2vid_tpu_torch.data.loader import SequenceLoader
+    from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.training import checkpoint as ckpt
+    from fsvid2vid_tpu_torch.training.step import train_step
+    from fsvid2vid_tpu_torch.training.trainer import to_device
+    res = {"phase": "cli_train_face_256_k8"}
+    warnings.filterwarnings("ignore", message="Polyfit may be poorly conditioned")
+    t0 = time.perf_counter()
+    data = write_face_dataset(os.path.join(tmp, "data"), seed=43, n_frames=K8_FRAMES)
+    res["dataset"] = {"sequences": CLI_SEQS, "frames": K8_FRAMES, "px": CLI_IMAGE,
+                      "seconds": time.perf_counter() - t0}
+    ckpts = os.path.join(tmp, "checkpoints")
+    argv = ["--name", "face_k8", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--n_shot", str(K8), "--batchSize", "4", "--niter", "2", "--niter_single", "1",
+            "--niter_decay", "0", "--steps_per_epoch", str(CLI_STEPS),
+            "--save_epoch_freq", "1000", "--print_freq", "4", "--display_freq", "4"]
+
+    # ---- train: epoch 1 single-frame, epoch 2 temporal (2 frames) ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(cv)
+    zero_b1(ak)
+    t0 = time.perf_counter()
+    parser = cli_train.build_arg_parser()
+    run = cli_train.setup(parser.parse_args(argv), parser)
+    cfg, trainer = run.cfg, run.trainer
+    atn = {n: p.detach().clone() for n, p in trainer.models.netG.named_parameters()
+           if n.startswith("atn_")}
+    trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
+    run.vis.close()
+    torch.cuda.synchronize()
+    res["train_seconds"] = time.perf_counter() - t0
+    res["launches_train"] = check_counts(cv, "K = 8 cli train", CLI_STEPS * 1 + CLI_STEPS * 2)
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["config"] = {k: getattr(cfg, k) for k in (
+        "fine_size", "batch_size", "n_shot", "ngf", "n_downsample_G", "n_adaptive_layers",
+        "n_downsample_A", "ndf", "num_workers", "compute_dtype", "no_vgg_loss", "no_flow_gt")}
+    if cfg.n_shot != K8:
+        raise AssertionError(f"K = 8 cli config: {res['config']}")
+    params = dict(trainer.models.netG.named_parameters())
+    res["atn_params_moved"] = [sum(int(not torch.equal(params[n], p)) for n, p in atn.items()),
+                               len(atn)]
+    res["epoch_losses"] = trainer.epoch_metrics
+    bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
+           if not math.isfinite(v)]
+    if sorted(trainer.epoch_metrics) != [1, 2] or bad:
+        raise AssertionError(f"K = 8 cli epochs {sorted(trainer.epoch_metrics)}, "
+                             f"non-finite losses {bad}")
+    res["sequences"] = sequence_times(trainer.timings)
+    res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
+
+    # ---- one more temporal sequence, its last step under torch.profiler ----
+    loader = SequenceLoader(cfg, steps_per_epoch=1, seed=cfg.seed + 1)
+    loader.set_epoch_frames(2)
+    seq = to_device(next(iter(loader.epoch(3))), run.device)
+    if seq["ref_images"].shape[1] != K8:
+        raise AssertionError(f"a loaded batch holds {seq['ref_images'].shape[1]} references")
+    zero_counts(cv)
+    log = []
+    flow_calls = run_train_sequence(torch, cfg, trainer.state, run.teacher, train_step, seq,
+                                    2, cfg.compute_dtype, log, profile=True)
+    res["launches_profiled_sequence"] = check_counts(cv, "K = 8 profiled sequence",
+                                                     flow_calls)
+    res["profiled_sequence"] = {k: log[0][k] for k in (
+        "teacher_ms", "step_ms", "peak_memory_gb", "flow_calls")}
+    res["profile_step"] = log[0]["profile_step"]
+    res["profile_teacher"] = log[0]["profile_teacher"]
+    att = chunked["train_256_k8"]
+    res["chunked_attention"] = {
+        "device_ms": att["device_ms"], "launches": att["launches"],
+        "share_of_step_device_ms": att["device_ms"] / res["profile_step"]["device_ms"]}
+    res["b1_launches"] = b1_launches(ak)
+
+    # ---- the checkpoint: bytes and save seconds ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ckpt.save(cfg, trainer.state, 3)
+    res["checkpoint_save_seconds"] = time.perf_counter() - t0
+    res["checkpoint_bytes"] = os.path.getsize(path)
+    res.update(data=data, checkpoints=ckpts)
+    emit(res)
+    del run, trainer, seq, params, atn
+    torch.cuda.empty_cache()
+    if any(res["b1_launches"].values()):
+        raise AssertionError(f"B1 launched in K = 8 training: {res['b1_launches']}")
+    if res["atn_params_moved"][0] < 0.5 * res["atn_params_moved"][1]:
+        raise AssertionError(f"attention encoders did not train: {res['atn_params_moved']}")
+    return res
+
+
+def phase_finetune_k8(torch, tmp):
+    """The JAX package's face_512_K8_attention model (bench.py:224-225)
+    adapted to a subject, then served: `cli.test --n_shot 8 --ref_img_id
+    <8 frames> --loadSize 512 --fineSize 512 --finetune` on the checkpoint
+    phase_cli_k8 left in `tmp` (the networks' parameters do not depend on
+    the image size): 100 finetune steps in bf16, each taking one of the 8
+    references as its target, with the generator's attention on the chunked
+    path, then K8_TEST_FRAMES frames in bf16, each with one launch of B1 on
+    its bf16 tensor-core route.  Observed through the module function as
+    phase_finetune_pose does, with B1's launches during the finetune (none)
+    and after it (one per frame), and G restored in full from the
+    checkpoint before the finetune."""
+    import os
+    from fsvid2vid_tpu_torch.cli import test as cli_test
+    from fsvid2vid_tpu_torch.inference import finetune as ft_lib
+    from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    from fsvid2vid_tpu_torch.training import checkpoint as ckpt
+    res = {"phase": "finetune_face_512_k8"}
+    data, ckpts = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
+    real = ft_lib.finetune
+
+    def observed(cfg, models, *args, **kw):
+        stored = ckpt.load(cfg)["networks"]["G"]
+        state = models.netG.state_dict()
+        res["g_restored"] = set(state) == set(stored) and all(
+            torch.equal(v.cpu(), stored[k].cpu()) for k, v in state.items())
+        mask = ft_lib.finetune_mask(models.netG)
+        before = {n: p.detach().clone() for n, p in models.netG.named_parameters()}
+        nets_D = {k: getattr(models, "net" + k) for k in ("D", "DT")}
+        before_D = {k: [p.detach().clone() for p in net.parameters()]
+                    for k, net in nets_D.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        b1_before = b1_launches(ak)
+        t0 = time.perf_counter()
+        out = real(cfg, models, *args, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        res["b1_launches_finetune"] = {r: n - b1_before[r] for r, n in b1_launches(ak).items()}
+        params = dict(models.netG.named_parameters())
+        moved = [n for n, p in params.items() if not torch.equal(p, before[n])]
+        res.update(
+            iters=len(out[1]), seconds=seconds, ms_per_step=1e3 * seconds / len(out[1]),
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+            ref_shape=list(args[0].shape), g_params=len(params),
+            g_params_in_mask=sum(mask.values()), g_params_moved=len(moved),
+            g_params_moved_outside_mask=[n for n in moved if not mask[n]],
+            atn_params_in_mask=sum(mask[n] for n in params if n.startswith("atn_")),
+            d_params_moved={k: [sum(int(not torch.equal(p, q)) for p, q in zip(
+                net.parameters(), before_D[k])), len(before_D[k])]
+                for k, net in nets_D.items()},
+            losses_first={k: v.item() for k, v in out[1][0].items()},
+            losses_last={k: v.item() for k, v in out[1][-1].items()},
+            compute_dtype=cfg.compute_dtype, n_shot=cfg.n_shot, size=cfg.fine_size)
+        return out
+
+    zero_b1(ak)
+    ft_lib.finetune = observed
+    try:
+        t0 = time.perf_counter()
+        out = cli_test.main([
+            "--name", "face_k8", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--results_dir", os.path.join(tmp, "results_finetune"), "--how_many",
+            str(K8_TEST_FRAMES), "--seq_path", os.path.join(data, "test_images", "0001/"),
+            "--ref_img_path", os.path.join(data, "test_images", "0002/"),
+            "--n_shot", str(K8), "--ref_img_id", K8_REF_IDS, "--loadSize", "512",
+            "--fineSize", "512", "--finetune"])
+        res["test_seconds"] = time.perf_counter() - t0
+    finally:
+        ft_lib.finetune = real
+    res["b1_launches_frames"] = {r: n - res["b1_launches_finetune"][r]
+                                 for r, n in b1_launches(ak).items()}
+    res["first_frame_seconds"] = out.first_frame_seconds
+    res["frame_ms"] = [1e3 * t for t in out.frame_seconds]
+    res["nonfinite_frames"] = out.nonfinite_frames
+    res["peak_memory_gb_test"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(res)
+    losses = list(res["losses_last"].values()) + list(res["losses_first"].values())
+    want_frames = {"sm90": K8_TEST_FRAMES, "sm90_f32": 0, "cuda_core": 0}
+    if (res["iters"] != 100 or not res["g_restored"] or res["g_params_moved_outside_mask"]
+            or res["g_params_moved"] == 0 or res["ref_shape"][1] != K8
+            or res["d_params_moved"]["D"][0] < 0.9 * res["d_params_moved"]["D"][1]
+            or any(res["b1_launches_finetune"].values())
+            or res["b1_launches_frames"] != want_frames
+            or len(res["frame_ms"]) != K8_TEST_FRAMES or out.nonfinite_frames
+            or not all(v == v and abs(v) != float("inf") for v in losses)):
+        raise AssertionError(f"finetune_face_512_k8: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import tempfile
     import torch
@@ -1569,6 +2014,11 @@ def main() -> int:
     phase_small_finetune(torch)
     phase_small_street(torch)
     street_res = phase_street_cli(torch)
+    chunked = phase_chunked_attention(torch, kern)
+    k3_res = phase_small_k3_train(torch)
+    with tempfile.TemporaryDirectory(prefix="fsv_k8_") as k8_tmp:
+        k8_res = phase_cli_k8(torch, k8_tmp, chunked)
+        ft8_res = phase_finetune_k8(torch, k8_tmp)
     bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
     c36 = kern["ragged_c36", "float32"]
     routes = slice_res["launches_by_route"]
@@ -1596,10 +2046,14 @@ def main() -> int:
         "ms": cv_main["previous_design_ms"], "plain_ms": cv_main["plain_ms"],
         "bound_ms": cv_main["f32_cuda_core_bound_ms"], "bound_by": "operations",
         "library_ms": None}
+    b1_paths = {"slice_k8_512": routes["sm90"],
+                "slice_k8_512_matched": slice_res["matched_launches_by_route"]["sm90"],
+                "finetune_face_512_k8": ft8_res["b1_launches_frames"]["sm90"]}
     emit({"kernels": [{
         "name": "flash_ref_attention_sm90", **b1,
         "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
-        "launches": routes["sm90"], "max_abs_err": bf["max_abs_err_out"],
+        "launches": sum(b1_paths.values()), "launches_by_path": b1_paths,
+        "max_abs_err": bf["max_abs_err_out"],
         **{k: bf[k] for k in keys}, "dtype": "bfloat16"}, {
         "name": "flash_ref_attention_sm90_f32", **b1,
         "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
@@ -1615,7 +2069,11 @@ def main() -> int:
                              "cli_train_pose_512x256": pose_res["launches_train"]["tc"],
                              "pose_teacher": pose_res["launches_teacher"]["tc"],
                              "cli_train_street_512": street_res["launches_train"]["tc"],
-                             "street_teacher": street_res["launches_teacher"]["tc"]},
+                             "street_teacher": street_res["launches_teacher"]["tc"],
+                             "small_k3_train": k3_res["b2_launches"]["tc"],
+                             "cli_train_face_256_k8": k8_res["launches_train"]["tc"],
+                             "k8_profiled_sequence":
+                                 k8_res["launches_profiled_sequence"]["tc"]},
         **{f"{case}_shape": {k: cv_res[case, "float32"][k] for k in cv_keys + (
             "shape", "bound_share", "previous_design_ms")} for case in ("pose", "street")},
         **{k: cv_main[k] for k in cv_keys},

@@ -9,9 +9,12 @@ synthesis from a trained checkpoint, with an HTML result page.
       --finetune --seq_path ... --ref_img_path ...
 
 It takes the train CLI's flags and these: --results_dir, --how_many,
---seq_path, --ref_img_path, --ref_img_id, --which_epoch, --finetune (adapt
-the restored G and discriminators to the first sample's references for
-finetune_iters steps before the first frame; K = 1 only, ROADMAP.md A.6).
+--seq_path, --ref_img_path, --ref_img_id (the reference frames' indices,
+comma-separated, at least --n_shot of them), --which_epoch, --finetune
+(adapt the restored G and discriminators to the first sample's references
+for finetune_iters steps before the first frame).  At --n_shot K > 1 each
+frame runs the attention once: on the card kernel B1, after a finetune too
+(the finetune itself runs the generator's differentiable train-mode path).
 The page is written to <results_dir>/<name>/<ref>_<seq>/index.html.
 """
 from __future__ import annotations
@@ -58,9 +61,10 @@ def main(argv=None) -> InferenceRun:
     parser = build_test_parser()
     args = parser.parse_args(argv)
     cfg = config_from_args(parser, args, is_train=False)
-    if cfg.finetune and cfg.n_shot > 1:
-        parser.error("--finetune at n_shot > 1 is not ported yet (ROADMAP.md A.6: "
-                     "the differentiable K > 1 attention)")
+    n_refs = len(str(cfg.ref_img_id).split(","))
+    if n_refs < cfg.n_shot:
+        parser.error(f"--n_shot {cfg.n_shot} needs as many reference frames; "
+                     f"--ref_img_id {cfg.ref_img_id!r} names {n_refs}")
     from fsvid2vid_tpu_torch import resolve_device
     try:
         device = resolve_device(args.device)

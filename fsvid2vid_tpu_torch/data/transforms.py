@@ -53,7 +53,10 @@ def get_video_params(cfg: Config, n_frames_total: int, cur_seq_len: int,
                      index: int, rng: np.random.RandomState):
     """Temporal window + reference sampling (base_dataset.py:101-126).
 
-    Returns (n_frames_total, start_idx, t_step, ref_indices)."""
+    Returns (n_frames_total, start_idx, t_step, ref_indices).  Raises
+    ValueError where a sample would hold fewer than n_shot references (a
+    short training sequence, too few --ref_img_id): the JAX function returns
+    the fewer, and its generator fails later in a reshape."""
     if cfg.is_train:
         n_frames_total = min(cur_seq_len, n_frames_total)
         max_t_step = min(cfg.max_t_step,
@@ -73,11 +76,21 @@ def get_video_params(cfg: Config, n_frames_total: int, cur_seq_len: int,
         ref_indices = list(rng.choice(ref_range,
                                       size=min(cfg.n_shot, len(ref_range)),
                                       replace=False))
+        if len(ref_indices) < cfg.n_shot:
+            raise ValueError(
+                f"n_shot {cfg.n_shot}: a sequence of {cur_seq_len} frames holds "
+                f"only {len(ref_range)} reference frames at least {min_range} "
+                f"frames from its start frame {start_idx}; use longer sequences "
+                f"or a smaller --n_shot")
     else:
         n_frames_total = 1
         start_idx = index
         t_step = 1
         ref_indices = [int(i) for i in str(cfg.ref_img_id).split(",")]
+        if len(ref_indices) < cfg.n_shot:
+            raise ValueError(
+                f"n_shot {cfg.n_shot}: --ref_img_id {cfg.ref_img_id!r} names "
+                f"{len(ref_indices)} reference frames")
     return n_frames_total, start_idx, t_step, ref_indices
 
 

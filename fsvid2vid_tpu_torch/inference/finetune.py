@@ -12,8 +12,11 @@ two-time-scale rates: G's over the filtered parameters only (the JAX
 version's masked optimiser zeroes the other updates), D's over all
 discriminators.  The other generator parameters take no gradient during the
 loop, so they leave it bitwise as they entered; buffers (spectral u / v,
-batch-norm statistics) advance as in any train step.  K = 1 only: train
-mode at K > 1 waits for the differentiable attention (ROADMAP.md A.6).
+batch-norm statistics) advance as in any train step.  At K > 1 each step's
+target is one of the K references and the generator's attention runs its
+train-mode path (ops/attention_kernel.py `chunked_ref_attention`); every input
+of the attention comes from parameters outside the mask, so it keeps no
+activations for the backward.
 """
 from __future__ import annotations
 
@@ -61,10 +64,6 @@ def finetune(cfg: Config, models: ModelBundle, ref_labels, ref_images,
     images in [-1, 1].  The models must hold the discriminators
     (build_models with cfg.finetune).  Returns the finetune's TrainState
     and each step's losses (0-d tensors on the models' device)."""
-    if cfg.n_shot > 1:
-        raise NotImplementedError(
-            "test-time finetune at n_shot > 1 is not ported yet (ROADMAP.md A.6: "
-            "the differentiable K > 1 attention)")
     ft_cfg = cfg.replace(finetune=True)
     mask = finetune_mask(models.netG)
     params = dict(models.netG.named_parameters())

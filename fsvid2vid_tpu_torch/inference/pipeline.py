@@ -126,7 +126,8 @@ class InferencePipeline:
 
     def step(self, label) -> Dict[str, torch.Tensor]:
         """One frame.  Returns fake_image (B, H, W, 3) and the flows, masks,
-        raw image and warped images of the frame, channel-last."""
+        raw image and warped images of the frame, channel-last; at K > 1
+        also ref_idx (B,) and atn (B, K), the references' attention masses."""
         if self._refs is None:
             raise RuntimeError("call reset() first")
         cfg, run = self.cfg, self._run
@@ -146,7 +147,7 @@ class InferencePipeline:
                     flow_mask=[_nhwc(f) for f in out["flow_mask"]],
                     img_raw=_nhwc(out.get("img_raw")),
                     warped=[_nhwc(f) for f in out["img_warp"]],
-                    ref_idx=out.get("ref_idx"))
+                    ref_idx=out.get("ref_idx"), atn=out.get("atn"))
 
 
 def run_sequence(cfg: Config, netG: FewShotGenerator, labels, ref_labels,

@@ -6,20 +6,24 @@ Ported: the reference encoder with its K-reference attention, the weight
 generation (fc stacks with the reference's flat-split order), the flow
 branches, the SPADE-combine embeddings and the main branch, plus the two
 serving caches (`encode_reference` for K = 1, `encode_reference_multi` for
-K > 1).  At eval with K > 1 the attention runs the hand-written CUDA kernel
-(ops/attention_kernel.py) on the card.
+K > 1).  The K > 1 attention follows the JAX package's rule: at eval it
+runs kernel B1 (ops/attention_kernel.py; on the card the hand-written CUDA
+kernel, on the CPU its plain version); in train mode, which B1 cannot serve
+because it has no backward, it runs `chunked_ref_attention`
+(ops/attention_kernel.py, B1's plain version), the differentiable
+query-chunked softmax of the JAX module's non-flash branch.
 
-`forward` follows `module.training`.  In train mode (K = 1 only) batch norms
-use batch statistics and every spectral-norm layer advances its u / v once
-per call, so a module that is called twice in one forward (the shared flow
-network, the up blocks that also produce the raw output) advances twice,
-as in the reference.  With cfg.remat the up blocks, the flow nets and the
-SC embedders are recomputed in the backward instead of keeping their
-activations (models/remat.py).
+`forward` follows `module.training`.  In train mode batch norms use batch
+statistics and every spectral-norm layer advances its u / v once per call,
+so a module that is called twice in one forward (the shared flow network,
+the up blocks that also produce the raw output) advances twice, as in the
+reference; at K > 1 the attention's key encoder runs once over the B·K
+references and its query encoder once over the B targets.  With cfg.remat
+the up blocks, the flow nets and the SC embedders are recomputed in the
+backward instead of keeping their activations (models/remat.py).
 
-Not ported: K > 1 in train mode (the attention kernel is forward only), the
-VAE branch (use_kld), adaptive_conv, and the face-refinement forward.  They
-raise.
+Not ported: the VAE branch (use_kld), adaptive_conv, and the
+face-refinement forward.  They raise.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from fsvid2vid_tpu_torch.models.flow_generator import FlowGenerator
 from fsvid2vid_tpu_torch.models.layers import (
     SNLinear, SpadeConv2d, SpadeResnetBlock)
 from fsvid2vid_tpu_torch.models.remat import remat
-from fsvid2vid_tpu_torch.ops.attention_kernel import flash_ref_attention
+from fsvid2vid_tpu_torch.ops.attention_kernel import chunked_ref_attention, flash_ref_attention
 from fsvid2vid_tpu_torch.ops.image_ops import leaky_relu, upsample_nearest
 from fsvid2vid_tpu_torch.ops.warp import flow_warp
 
@@ -60,8 +64,12 @@ class FewShotGenerator(nn.Module):
                 f"use_label_ref={cfg.use_label_ref!r} is not ported (every "
                 "preset uses 'mul')")
         self.cfg = cfg
-        # the K > 1 attention; a check may swap in flash_ref_attention_plain
+        # the K > 1 attention at eval (B1); a check may swap in its plain
+        # version.  Train mode takes chunked_ref_attention
+        # with an energy of at most atn_chunk_elems elements per chunk (the
+        # JAX module's attribute and default).
         self.attention = flash_ref_attention
+        self.atn_chunk_elems = 1 << 23
         nd = cfg.n_downsample_G
         self.nd = nd
         self.ch = ch = channel_schedule(cfg.ngf, nd + 1, min(1024, cfg.ngf * 2 ** nd))
@@ -193,8 +201,11 @@ class FewShotGenerator(nn.Module):
             return t.to(x.dtype).permute(0, 2, 3, 1).reshape(b, rows // b * h * w, c)
 
         lf = tokens(x_label, bk) if x_label is not None else None
-        out_x, out_l, vis = self.attention(
-            tokens(query, b), tokens(key, bk), tokens(x, bk), lf, n)
+        args = (tokens(query, b), tokens(key, bk), tokens(x, bk), lf, n)
+        if self.training:
+            out_x, out_l, vis = chunked_ref_attention(*args, self.atn_chunk_elems)
+        else:
+            out_x, out_l, vis = self.attention(*args)
         atn_sum = vis.sum(1)
         out_x = out_x.reshape(b, h, w, c).permute(0, 3, 1, 2)
         if out_l is not None:
@@ -423,18 +434,16 @@ class FewShotGenerator(nn.Module):
     # ------------------------------------------------------------------
     def forward(self, label, label_refs, img_refs, prev_label=None,
                 prev_img=None, warp_prev: bool = False, prefix=None):
-        """Full forward (reference generator.py:181-229), at eval or, for
-        K = 1, in train mode.
+        """Full forward (reference generator.py:181-229), at eval or in train
+        mode.
 
         label: (B, Cl, H, W); label_refs / img_refs: (B, K, C, H, W);
         prev_label / prev_img: previous frames stacked on channels, or None;
         prefix: the encode_reference_multi cache (K > 1).  Returns a dict with
-        img_final, flow, flow_mask, img_raw, img_warp, atn_vis, ref_idx."""
+        img_final, flow, flow_mask, img_raw, img_warp, atn_vis, ref_idx and,
+        at K > 1, atn: each reference's attention mass (B, K), whose argmax
+        is ref_idx."""
         cfg = self.cfg
-        if self.training and cfg.n_shot > 1:
-            raise NotImplementedError(
-                "train mode with n_shot > 1 is not ported: the attention "
-                "kernel has no backward")
         x, gen = self.weight_generation(img_refs, label_refs, label, prefix=prefix)
         img_final, img_raw, flow, flow_mask, img_warp = self._synthesize_from(
             x, gen, label, label_refs, img_refs, prev_label, prev_img, warp_prev)
@@ -449,7 +458,7 @@ class FewShotGenerator(nn.Module):
             img_raw = img_raw_out
         return dict(img_final=img_final, flow=flow, flow_mask=flow_mask,
                     img_raw=img_raw, img_warp=img_warp, atn_vis=gen["atn_vis"],
-                    ref_idx=gen["ref_idx"])
+                    ref_idx=gen["ref_idx"], atn=gen["atn"])
 
     def encode_reference(self, label_refs, img_refs, label) -> Dict:
         """K = 1 serving cache: the bottleneck and the generated weights,

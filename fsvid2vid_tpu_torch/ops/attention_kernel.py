@@ -1,5 +1,6 @@
 """Multi-reference flash attention: the CUDA kernels' wrapper and its plain
-PyTorch version.
+PyTorch version, `chunked_ref_attention`, which is also the generator's
+differentiable train-mode attention.
 
 Port of fsvid2vid_tpu/ops/pallas/attention_kernel.py::flash_ref_attention.
 With N = n_refs * hw_key keys:
@@ -99,33 +100,47 @@ def route_for(device_type: str, dtype: torch.dtype, c: int) -> str:
     return "cuda_core"
 
 
-def flash_ref_attention_plain(query, key, xf, lf, n_refs: int,
-                              chunk_elems: int = 1 << 23):
-    """Plain PyTorch version: the generator's chunked streaming softmax
-    (fsvid2vid_tpu/models/generator.py:306-340) in f32, chunked over queries
-    so the (B, N, q_chunk) energy slab stays under `chunk_elems` per batch.
+def chunked_ref_attention(query, key, xf, lf, n_refs: int, chunk_elems: int = 1 << 23):
+    """The K > 1 attention in plain, differentiable PyTorch: the non-flash
+    branch of the JAX `_attention_module`
+    (fsvid2vid_tpu/models/generator.py:306-340), which the generator runs in
+    train mode and finetune (B1 has no backward), and B1's plain version.
+    A softmax over the N = n_refs·hw keys, one query chunk at a time: the
+    chunk is the largest power of two (halving from hw) whose energy holds
+    at most `chunk_elems` elements per sample (N x chunk), so the whole
+    (B, N, hw) energy is never held at once; a last chunk that the halving
+    leaves shorter gives the same result (where JAX asserts instead).  The
+    energy is held as (B, chunk, N), the transpose of JAX's, so that the
+    softmax runs over its contiguous last axis: over the middle axis
+    PyTorch's CUDA softmax took 11 ms per chunk at face 512 / K = 8 on an
+    H100, 2.9 s a call.
 
-    Returns (out_x, out_l or None, vis) like flash_ref_attention."""
-    b, hw, c = query.shape
-    n = key.shape[1]
+    Arguments and results as flash_ref_attention's: query (B, hw, c), key /
+    xf / lf (B, N, c), lf optional -> out_x, out_l (B, hw, c) in the dtype
+    of xf / lf, vis (B, hw, n_refs) f32, each reference's share of each
+    query's softmax mass.  Everything inside runs in f32 with autocast off,
+    as the JAX branch upcasts its inputs."""
+    hw, n = query.shape[1], key.shape[1]
     q_chunk = hw
     while q_chunk > 1 and n * q_chunk > chunk_elems:
         q_chunk //= 2
-    q32, k32, x32 = query.float(), key.float(), xf.float()
-    l32 = lf.float() if lf is not None else None
-    outs_x, outs_l, viss = [], [], []
-    for s in range(0, hw, q_chunk):
-        energy = torch.bmm(k32, q32[:, s:s + q_chunk].transpose(1, 2))
-        attn = torch.softmax(energy, dim=1)                 # (b, n, qc)
-        attn_t = attn.transpose(1, 2)
-        outs_x.append(torch.bmm(attn_t, x32))
-        if l32 is not None:
-            outs_l.append(torch.bmm(attn_t, l32))
-        viss.append(attn.reshape(b, n_refs, n // n_refs, -1).sum(2)
-                    .transpose(1, 2))
-    out_x = torch.cat(outs_x, 1).to(xf.dtype)
-    out_l = torch.cat(outs_l, 1).to(xf.dtype) if l32 is not None else None
-    return out_x, out_l, torch.cat(viss, 1)
+    with torch.autocast(query.device.type, enabled=False):
+        key32, xf32 = key.float(), xf.float()
+        lf32 = None if lf is None else lf.float()
+        outs_x, outs_l, vis = [], [], []
+        for q_c in query.float().split(q_chunk, 1):
+            attn = torch.softmax(torch.bmm(q_c, key32.transpose(1, 2)), -1)  # (B, q, N)
+            outs_x.append(torch.bmm(attn, xf32))
+            if lf32 is not None:
+                outs_l.append(torch.bmm(attn, lf32))
+            vis.append(attn.unflatten(2, (n_refs, n // n_refs)).sum(3))  # (B, q, K)
+        out_x = torch.cat(outs_x, 1).to(xf.dtype)
+        out_l = None if lf is None else torch.cat(outs_l, 1).to(lf.dtype)
+        return out_x, out_l, torch.cat(vis, 1)
+
+
+# B1's plain version is the same function
+flash_ref_attention_plain = chunked_ref_attention
 
 
 def _check(query, key, xf, lf, n_refs):

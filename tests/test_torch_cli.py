@@ -244,13 +244,6 @@ def test_finetune_restores_g_and_the_discriminators(street_run, tmp_path, monkey
     assert sum("synthesized" in i for i in images) == 3
 
 
-def test_finetune_above_one_reference_exits_naming_its_item(capsys):
-    with pytest.raises(SystemExit) as e:
-        cli_test.main(["--finetune", "--n_shot", "2", "--device", "cpu"])
-    assert e.value.code != 0
-    assert "ROADMAP.md A.6" in capsys.readouterr().err
-
-
 def test_without_device_and_card_the_command_fails(data, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

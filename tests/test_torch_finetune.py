@@ -14,8 +14,8 @@
     tests/test_torch_trainer.py's docstring; the generator parameters the
     mask selects within 4 lr of JAX's after the two steps (two Adam steps
     of at most lr each, whose signs may differ where a gradient is ~0),
-    the others bitwise unchanged on both sides;
-  * K > 1 refuses, naming ROADMAP.md A.6.
+    the others bitwise unchanged on both sides.
+K = 3 is held against JAX in tests/test_torch_finetune_k3.py.
 """
 import jax
 import jax.numpy as jnp
@@ -154,10 +154,3 @@ def test_two_finetune_steps_match_jax(monkeypatch):
         assert p.requires_grad, name
     assert moved > 0.5 * sum(mask.values())
     assert all(not torch.equal(p, before_D[n]) for n, p in models.netD.named_parameters())
-
-
-def test_finetune_at_k_above_one_names_its_item():
-    """The refusal comes before the models are touched."""
-    cfg = tconfig.face_config(**dict(TINY, n_shot=2, is_train=False, finetune=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.6"):
-        tft.finetune(cfg, None, np.zeros((1, 2, 32, 32, 1)), np.zeros((1, 2, 32, 32, 3)))

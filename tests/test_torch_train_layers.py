@@ -272,13 +272,12 @@ def test_generator_train_forward(warp_prev, add_raw):
 
 
 def test_generator_train_mode_limits():
+    """The serving caches are built at eval only (train mode at K > 1 runs
+    the full forward: tests/test_torch_generator_train_k3.py)."""
     cfg = tconfig.face_config(ngf=4, nff=4, fine_size=32, load_size=32,
                               n_downsample_G=3, n_adaptive_layers=2, n_shot=2)
     g = build_generator(cfg, device="cpu").train()
-    x = torch.zeros(1, cfg.gen_input_nc, 32, 32)
     refs_l = torch.zeros(1, 2, cfg.gen_input_nc, 32, 32)
     refs_i = torch.zeros(1, 2, 3, 32, 32)
-    with pytest.raises(NotImplementedError, match="n_shot > 1"):
-        g(x, refs_l, refs_i)
     with pytest.raises(NotImplementedError, match="eval"):
         g.encode_reference_multi(refs_l, refs_i)
