@@ -39,6 +39,16 @@ to end at the full width of face_config:
     (`phase_cli_k8`), then `cli.test --n_shot 8 --finetune` at 512 px on
     its checkpoint, 100 steps, and 8 frames served from the finetuned
     generator, one attention-kernel launch each (`phase_finetune_k8`);
+  * face refinement and the VAE (refine_face, use_kld with
+    use_label_ref='concat'): a small refine_face pose model's step on the
+    card against the CPU, `cli.train --refine_face` for pose at 512 x 256
+    (`phase_pose_refine_cli`: the face generator on 128 x 128 crops, a
+    resume, turns with refine_face on and off) and `cli.test --refine_face
+    --finetune` on its checkpoint, 100 steps (`finetune_pose_refine`); the
+    K = 8 / 512 px model with the VAE and concatenated reference labels,
+    one attention-kernel launch (without label features) per frame, in
+    turns against the plain model (`phase_slice_kld_concat`), and a small
+    K = 2 such model's step on the card against the CPU;
   * eval, serving export and profiling: `cli.eval` on those 8 frames at
     512 px, uncalibrated and with an Inception file (`phase_eval_512`);
     the K = 8 / 512 px model exported in bf16 and served from the saved
@@ -87,6 +97,9 @@ SHORT_REFS = dict(b=1, hw=40, n_refs=5, c=64, has_lf=True)
 # moves a lot within a reference
 SHARP = dict(b=1, hw=2048, n_refs=4, c=128, has_lf=True)
 SHARPNESS = {"sharp": 4.0}
+# the slice's shape without label features: use_label_ref='concat' mixes
+# the reference features alone (slice_k8_512_kld_concat)
+SLICE_NOLF = dict(SLICE, has_lf=False)
 # kernel vs plain version, max abs error on outputs / on the masses:
 #  ragged, f32: the same f32 math in another order: 1e-4 / 1e-5 (the CPU
 #    tests' tolerances);
@@ -101,13 +114,15 @@ SHARPNESS = {"sharp": 4.0}
 #    2.5e-5 (PERF.md §6 has the readings of both on the card);
 #  bf16: the kernel rounds p to bf16 before the value products (as the TPU
 #    kernel does) and both round the outputs to bf16: 3e-2 / 1e-4.
-TOL = {("slice", "float32"): (5e-4, 1e-4), ("sharp", "float32"): (1.5e-4, 2.5e-5),
+TOL = {("slice", "float32"): (5e-4, 1e-4), ("slice_nolf", "float32"): (5e-4, 1e-4),
+       ("sharp", "float32"): (1.5e-4, 2.5e-5),
        **{(case, "float32"): (1e-4, 1e-5)
           for case in ("ragged", "ragged_c36", "short_refs")},
        **{(case, "bfloat16"): (3e-2, 1e-4)
-          for case in ("ragged", "ragged_c36", "slice", "short_refs", "sharp")}}
-ATTENTION_CASES = {"slice": SLICE, "ragged": RAGGED, "ragged_c36": RAGGED_C36,
-                   "short_refs": SHORT_REFS, "sharp": SHARP}
+          for case in ("ragged", "ragged_c36", "slice", "slice_nolf", "short_refs",
+                       "sharp")}}
+ATTENTION_CASES = {"slice": SLICE, "slice_nolf": SLICE_NOLF, "ragged": RAGGED,
+                   "ragged_c36": RAGGED_C36, "short_refs": SHORT_REFS, "sharp": SHARP}
 # a tensor-core kernel timed in turns against the CUDA-core design it replaced
 TIMING_TURNS = {"bfloat16": ("sm90", "cuda_core", "cuda_core", "sm90"),
                 "float32": ("sm90_f32", "cuda_core", "cuda_core", "sm90_f32")}
@@ -839,17 +854,20 @@ def small_step_card_vs_cpu(torch, cfg, seq, prepare=None):
     2-norm of the card's less the CPU's over all the group's tensors against
     that of the CPU's, and the same of the gradient, read from Adam's first
     moment (the first step's is (1 - beta1) x the gradient on both devices;
-    a tensor without one counts as zero); what G's update error would read
+    a tensor without one counts as zero; netGf's too with refine_face); what
+    G's update error would read
     if the card had left the atn_* tensors as they were
     (`G_if_atn_dropped`); and whether both devices picked the same
     reference per sample.  Adam's first update is about lr x sign(gradient),
     so the conv biases that a batch norm follows, whose gradient is zero up
     to rounding, take updates of +-lr in a sign that rounding picks: they
-    set the update's error, and the gradient's is the tight one."""
+    set the update's error, and the gradient's is the tight one.  With
+    use_kld both devices take the VAE's noise from one CPU generator seeded
+    VAE_SEED."""
     from fsvid2vid_tpu_torch.models.input_process import encode_label
     from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
     from fsvid2vid_tpu_torch.training.state import TrainState, build_models
-    from fsvid2vid_tpu_torch.training.step import StepFlags, train_step
+    from fsvid2vid_tpu_torch.training.step import StepFlags, train_step, with_vae_noise
     from fsvid2vid_tpu_torch.training.trainer import to_device
     losses, conf, params, grads, picked = {}, {}, {}, {}, {}
     for device in ("cuda", "cpu"):
@@ -861,6 +879,8 @@ def small_step_card_vs_cpu(torch, cfg, seq, prepare=None):
         groups = {"G": list(models.netG.named_parameters()),
                   "D": [(n, p) for d in models.discriminators() for n, p in d.named_parameters()]}
         groups["atn"] = [(n, p) for n, p in groups["G"] if n.startswith("atn_")]
+        if models.netGf is not None:
+            groups["Gf"] = list(models.netGf.named_parameters())
         before = {k: [p.detach().cpu().clone() for _, p in ps] for k, ps in groups.items()}
         teacher = FlowTeacher(cfg, device=device, generator=gen)
         on = to_device(seq, torch.device(device))
@@ -872,6 +892,7 @@ def small_step_card_vs_cpu(torch, cfg, seq, prepare=None):
                      flow_gt=at(flow_gt), conf_gt=at(conf_gt))
         prevs = dict(label=encode_label(cfg, on["tgt_label"][:, 0]),
                      real=on["tgt_image"][:, 0], fake=on["tgt_image"][:, 0])
+        batch = with_vae_noise(cfg, batch, torch.Generator().manual_seed(VAE_SEED))
         _, out, visuals = train_step(cfg, state, batch, prevs, StepFlags(True, True))
         losses[device] = {k: v.item() for k, v in out.items()}
         params[device] = {k: [p.detach().cpu() - b for (_, p), b in zip(ps, before[k])]
@@ -987,8 +1008,9 @@ def check_counts(cv, what, expected):
 def trained_tensors(trainer):
     """Networks' state and both Adam states of a trainer, by name."""
     out = {}
-    for key in ("netG", "netD", "netDT"):
-        for name, t in getattr(trainer.models, key).state_dict().items():
+    for key in ("netG", "netGf", "netD", "netDT"):
+        net = getattr(trainer.models, key)
+        for name, t in (net.state_dict() if net is not None else {}).items():
             out[f"{key}.{name}"] = t
     for key in ("opt_G", "opt_D"):
         for i, moments in getattr(trainer.state, key).state_dict()["state"].items():
@@ -1584,65 +1606,87 @@ def g_moved_as_its_gradients_allow(res):
             and (res["g_params_moved"] > 0 or len(g["zero_grad_steps"]) == iters))
 
 
-def phase_finetune_pose(torch, tmp):
+def generators_moved_as_their_gradients_allow(res):
+    """`g_moved_as_its_gradients_allow` for G and, where the finetune has
+    one (refine_face), for the face generator netGf by the same rule: its
+    output layer's tanh saturates in bf16 as G's does."""
+    gf = {"iters": res["iters"], "g_gradients": res.get("gf_gradients"),
+          "g_params_moved": res.get("gf_params_moved")}
+    return g_moved_as_its_gradients_allow(res) and (
+        "gf_gradients" not in res or g_moved_as_its_gradients_allow(gf))
+
+
+def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetune_pose"):
     """scripts/pose/test.sh: `cli.test --dataset_mode fewshot_pose ...
-    --finetune` on the checkpoint `phase_pose_cli` left in `tmp`, with the
-    reference's 100 iterations at the slice's full width, then
+    --finetune` on the checkpoint `name` that `phase_pose_cli` (or, with
+    --refine_face among `flags`, `phase_pose_refine_cli`) left in `tmp`,
+    with the reference's 100 iterations at the slice's full width, then
     POSE_TEST_FRAMES frames.  The finetune is observed through its module
-    function: the G parameters outside finetune_mask leave it bitwise as
-    they entered, some inside it move (`g_moved_as_its_gradients_allow`),
-    and so do the image and face discriminators' (the temporal one sees no
-    frame sequence)."""
+    function: the G (and netGf) parameters outside finetune_mask leave it
+    bitwise as they entered, some inside it move
+    (`generators_moved_as_their_gradients_allow`), and so do the image and
+    face discriminators' (the temporal one sees no frame sequence)."""
     import os
     from fsvid2vid_tpu_torch.cli import test as cli_test
     from fsvid2vid_tpu_torch.inference import finetune as ft_lib
-    res = {"phase": "finetune_pose"}
+    res = {"phase": phase}
     data, ckpts = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
     real = ft_lib.finetune
 
+    def watched(net):
+        mask = ft_lib.finetune_mask(net)
+        before = {n: p.detach().clone() for n, p in net.named_parameters()}
+        return mask, before, watch_output_layer(torch, net)
+
+    def record(key, net, mask, before, saturated, zero_grad, iters):
+        params = dict(net.named_parameters())
+        moved = [n for n, p in params.items() if not torch.equal(p, before[n])]
+        res.update({f"{key}_params": len(params), f"{key}_params_in_mask": sum(mask.values()),
+                    f"{key}_params_moved": len(moved),
+                    f"{key}_gradients": g_gradient_record(saturated, zero_grad, iters),
+                    f"{key}_params_moved_outside_mask": [n for n in moved if not mask[n]]})
+
     def observed(cfg, models, *args, **kw):
-        mask = ft_lib.finetune_mask(models.netG)
-        before = {n: p.detach().clone() for n, p in models.netG.named_parameters()}
+        nets = {"g": models.netG, "gf": models.netGf}
+        nets = {k: v for k, v in nets.items() if v is not None}
+        watch = {k: watched(net) for k, net in nets.items()}
         nets_D = {k: getattr(models, "net" + k) for k in ("D", "DT", "Df")}
         before_D = {k: [p.detach().clone() for p in net.parameters()]
                     for k, net in nets_D.items()}
-        saturated, zero_grad, unhook = watch_output_layer(torch, models.netG)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
             out = real(cfg, models, *args, **kw)
         finally:
-            unhook()
+            for _, _, (_, _, unhook) in watch.values():
+                unhook()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        params = dict(models.netG.named_parameters())
-        moved = [n for n, p in params.items() if not torch.equal(p, before[n])]
+        for k, (mask, before, (saturated, zero_grad, _)) in watch.items():
+            record(k, nets[k], mask, before, saturated, zero_grad, len(out[1]))
         res.update(
             iters=len(out[1]), seconds=seconds, ms_per_step=1e3 * seconds / len(out[1]),
             peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-            g_params=len(params), g_params_in_mask=sum(mask.values()),
-            g_params_moved=len(moved),
-            g_gradients=g_gradient_record(saturated, zero_grad, len(out[1])),
-            g_params_moved_outside_mask=[n for n in moved if not mask[n]],
             # [moved, of] per discriminator; the temporal D sees no frames here
             d_params_moved={k: [sum(int(not torch.equal(p, q)) for p, q in zip(
                 net.parameters(), before_D[k])), len(before_D[k])]
                 for k, net in nets_D.items()},
             losses_first={k: v.item() for k, v in out[1][0].items()},
             losses_last={k: v.item() for k, v in out[1][-1].items()},
-            compute_dtype=cfg.compute_dtype, remat=cfg.remat, add_face_D=cfg.add_face_D)
+            compute_dtype=cfg.compute_dtype, remat=cfg.remat, add_face_D=cfg.add_face_D,
+            refine_face=cfg.refine_face)
         return out
 
     ft_lib.finetune = observed
     try:
         t0 = time.perf_counter()
         out = cli_test.main([
-            "--name", "pose", "--dataroot", data, "--checkpoints_dir", ckpts,
-            "--results_dir", os.path.join(tmp, "results_finetune"), "--how_many",
+            "--name", name, "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--results_dir", os.path.join(tmp, "results_finetune_" + name), "--how_many",
             str(POSE_TEST_FRAMES), "--seq_path", os.path.join(data, "test_images", "0001/"),
             "--ref_img_path", os.path.join(data, "test_images", "0002/"), "--finetune"]
-            + POSE_FLAGS)
+            + flags)
         res["test_seconds"] = time.perf_counter() - t0
     finally:
         ft_lib.finetune = real
@@ -1651,13 +1695,15 @@ def phase_finetune_pose(torch, tmp):
     res["nonfinite_frames"] = out.nonfinite_frames
     emit(res)
     losses = list(res["losses_last"].values()) + list(res["losses_first"].values())
-    if (res["iters"] != 100 or res["g_params_moved_outside_mask"]
-            or not g_moved_as_its_gradients_allow(res)
+    outside = res["g_params_moved_outside_mask"] + res.get("gf_params_moved_outside_mask", [])
+    if (res["iters"] != 100 or outside
+            or not generators_moved_as_their_gradients_allow(res)
+            or ("--refine_face" in flags) != ("gf_gradients" in res)
             or any(moved < 0.9 * of for k, (moved, of) in res["d_params_moved"].items()
                    if k != "DT")
             or out.nonfinite_frames or not all(v == v and abs(v) != float("inf")
                                                for v in losses)):
-        raise AssertionError(f"finetune_pose: {res}")
+        raise AssertionError(f"{phase}: {res}")
     torch.cuda.empty_cache()
     return res
 
@@ -1690,6 +1736,317 @@ def phase_small_finetune(torch):
           "max_rel_err": rel, "tol": SMALL_FINETUNE_RTOL})
     if not rel <= SMALL_FINETUNE_RTOL:
         raise AssertionError(f"small finetune, card vs CPU: {rel}")
+
+
+# ----------------------------------------------------------------------
+# face refinement (refine_face: the face generator netGf) for pose, and the
+# VAE bottleneck with concatenated reference labels
+# ----------------------------------------------------------------------
+POSE_REFINE_FLAGS = POSE_FLAGS + ["--refine_face"]
+POSE_REFINE_TURNS = ("refine", "plain", "plain", "refine")
+# small refine_face pose model, card against CPU: losses and G's and netGf's
+# gradients as SMALL_POSE_RTOL.  netGf's reads the clamp of
+# replace_face_region: a refined value within the two devices' rounding of
+# +-1 would move every netGf gradient by ~1 % (tests/test_torch_pose_refine_step.py)
+SMALL_KLD_RTOL = 1e-3   # small VAE + concat K = 2 model: losses and gradients
+VAE_SEED = 71
+
+
+def phase_pose_refine_cli(torch, tmp):
+    """scripts/pose/train.sh with --refine_face at the full width of
+    phase_pose_cli (512 x 256, ngf 32, netGf on 128 x 128 face crops, face
+    D, remat, VGG19 and the FlowNet2 teacher on the labels, bf16, batch 4, 4
+    loader threads) on phase_pose_cli's dataset in `tmp`: `cli.train` for
+    one single-frame and one temporal epoch of POSE_STEPS iterations (B2
+    once per flow computation), a resume with --continue_train for a third
+    epoch from the saved state (netGf and its Adam moments included), the
+    refiner's cost as turns of one temporal sequence with refine_face on
+    and off in the same models on the same batch and one profiled sequence
+    each way, netGf's parameters moved by the run, the checkpoint's bytes and netGf's share, peak memory."""
+    import math
+    import os
+    from fsvid2vid_tpu_torch.cli import train as cli_train
+    from fsvid2vid_tpu_torch.data.loader import SequenceLoader
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.training import checkpoint as ckpt
+    from fsvid2vid_tpu_torch.training.step import train_step
+    from fsvid2vid_tpu_torch.training.trainer import to_device
+    res = {"phase": "cli_train_pose_refine_512x256"}
+    data, ckpts = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
+    argv = ["--name", "pose_refine", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--batchSize", "4", "--niter", "2", "--niter_single", "1",
+            "--niter_decay", "0", "--steps_per_epoch", str(POSE_STEPS),
+            "--save_epoch_freq", "1000", "--print_freq", "4", "--display_freq", "4"
+            ] + POSE_REFINE_FLAGS
+    parser = cli_train.build_arg_parser()
+
+    # ---- train: epoch 1 single-frame, epoch 2 temporal (2 frames) ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(cv)
+    t0 = time.perf_counter()
+    run = cli_train.setup(parser.parse_args(argv), parser)
+    cfg, trainer = run.cfg, run.trainer
+    gf0 = [p.detach().clone() for p in trainer.models.netGf.parameters()]
+    trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
+    run.vis.close()
+    torch.cuda.synchronize()
+    res["train_seconds"] = time.perf_counter() - t0
+    res["launches_train"] = check_counts(cv, "pose refine cli train",
+                                         POSE_STEPS * 1 + POSE_STEPS * 2)
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    gf = trainer.models.netGf
+    res["config"] = {k: getattr(cfg, k) for k in (
+        "height", "width", "batch_size", "ngf", "n_downsample_G", "n_adaptive_layers",
+        "refine_face", "add_face_D", "remat", "n_shot", "compute_dtype", "no_vgg_loss",
+        "no_flow_gt")}
+    res["gf_config"] = {k: getattr(gf.cfg, k) for k in (
+        "fine_size", "n_downsample_G", "n_adaptive_layers", "input_nc")}
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    res["params"] = {k: count(getattr(trainer.models, "net" + k))
+                     for k in ("G", "Gf", "D", "DT", "Df")}
+    res["gf_params_moved"] = [sum(int(not torch.equal(p, q)) for p, q in zip(
+        gf.parameters(), gf0)), len(gf0)]
+    res["epoch_losses"] = trainer.epoch_metrics
+    res["sequences"] = sequence_times(trainer.timings)
+    res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
+    bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
+           if not math.isfinite(v)]
+    face = [(e, k) for e, m in trainer.epoch_metrics.items()
+            for k in ("Df_real", "Df_fake", "Gf_GAN", "Gf_GAN_Feat") if not m[k] > 0]
+    if (sorted(trainer.epoch_metrics) != [1, 2] or bad or face or not cfg.refine_face
+            or res["gf_params_moved"][0] < 0.9 * res["gf_params_moved"][1]):
+        raise AssertionError(f"pose refine cli: {res}")
+
+    # ---- resume at epoch 3 with the saved state, then finish it ----
+    saved = {k: v.clone() for k, v in trained_tensors(trainer).items()}
+    del run, trainer, gf, gf0
+    torch.cuda.empty_cache()
+    zero_counts(cv)
+    resumed = cli_train.setup(parser.parse_args(argv + ["--continue_train", "--niter", "3"]),
+                              parser)
+    trainer = resumed.trainer
+    got = trained_tensors(trainer)
+    differ = [k for k, v in saved.items() if k not in got or not torch.equal(got[k], v)]
+    if (trainer.start_epoch, trainer.epoch_iter) != (3, 0) or differ or len(got) != len(saved):
+        raise AssertionError(f"resumed at {(trainer.start_epoch, trainer.epoch_iter)}, "
+                             f"differing tensors {differ[:5]}")
+    res["resume"] = {"start_epoch": trainer.start_epoch, "tensors_equal": len(saved),
+                     "gf_tensors": sum(k.startswith("netGf.") for k in saved)}
+    del saved
+    trainer.fit(resumed.make_data_iter, resumed.teacher)
+    resumed.vis.close()
+    res["resume"]["launches"] = check_counts(cv, "pose refine resume", POSE_STEPS * 2)
+    res["resume"]["sequences"] = sequence_times(trainer.timings)
+    if sorted(trainer.epoch_metrics) != [3] or not all(
+            math.isfinite(v) for v in trainer.epoch_metrics[3].values()):
+        raise AssertionError(f"pose refine resumed epoch: {trainer.epoch_metrics}")
+
+    # ---- the refiner's cost: one temporal sequence per turn, refine_face on
+    # and off in the same models, on the same loaded batch ----
+    loader = SequenceLoader(cfg, steps_per_epoch=1, seed=cfg.seed + 1)
+    loader.set_epoch_frames(2)
+    seq = to_device(next(iter(loader.epoch(3))), resumed.device)
+    zero_counts(cv)
+    turns = []
+    for turn in POSE_REFINE_TURNS:
+        log = []
+        run_train_sequence(torch, cfg.replace(refine_face=turn == "refine"), trainer.state,
+                           resumed.teacher, train_step, seq, 3, cfg.compute_dtype, log)
+        turns.append({"turn": turn, "step_ms": log[0]["step_ms"],
+                      "peak_memory_gb": log[0]["peak_memory_gb"]})
+    mean = lambda kind: (sum(sum(t["step_ms"]) for t in turns if t["turn"] == kind)
+                         / sum(len(t["step_ms"]) for t in turns if t["turn"] == kind))
+    res["turns"] = turns
+    res["ms_per_step_refine"], res["ms_per_step_plain"] = mean("refine"), mean("plain")
+    res["refiner_ms_per_step"] = res["ms_per_step_refine"] - res["ms_per_step_plain"]
+    # the device's view: the last step of one more sequence each way under
+    # torch.profiler (kernel ms, launches, busy share)
+    for turn in ("refine", "plain"):
+        log = []
+        run_train_sequence(torch, cfg.replace(refine_face=turn == "refine"), trainer.state,
+                           resumed.teacher, train_step, seq, 3, cfg.compute_dtype, log,
+                           profile=True)
+        res[f"profile_{turn}"] = log[0]["profile_step"]
+    res["launches_turns"] = check_counts(cv, "pose refine turns",
+                                         2 * len(POSE_REFINE_TURNS) + 2 * 2 * 2)
+
+    # ---- the checkpoint: bytes, netGf's share (its tensors and moments) ----
+    t0 = time.perf_counter()
+    path = ckpt.save(cfg, trainer.state, 4)
+    res["checkpoint_save_seconds"] = time.perf_counter() - t0
+    res["checkpoint_bytes"] = os.path.getsize(path)
+    tensors = trained_tensors(trainer)
+    n_g = sum(1 for _ in trainer.models.netG.parameters())
+    n_gf = sum(1 for _ in trainer.models.netGf.parameters())
+    gf_moment = lambda k: (k.startswith("opt_G.")
+                           and n_g <= int(k.split(".")[1]) < n_g + n_gf)
+    res["checkpoint_gf_bytes"] = sum(t.numel() * t.element_size() for k, t in tensors.items()
+                                     if k.startswith("netGf.") or gf_moment(k))
+    res["peak_memory_gb_all"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    emit(res)
+    del resumed, trainer, seq, tensors
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_small_pose_refine(torch):
+    """phase_small_pose with refine_face: a small pose model's first
+    temporal f32 step, teacher, face D, remat and netGf on 32 x 32 face
+    crops, on the card against the CPU from one loaded batch."""
+    import os
+    import tempfile
+    from fsvid2vid_tpu_torch.config import pose_config
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    cfg = pose_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
+                      n_downsample_G=3, n_adaptive_layers=2, batch_size=2, niter_single=0,
+                      compute_dtype="float32", refine_face=True)
+    with tempfile.TemporaryDirectory(prefix="fsv_small_pose_refine_") as tmp:
+        seq = pose_batch(cfg, os.path.join(tmp, "data"), seed=52)
+    zero_counts(cv)
+    losses, conf, rel, updated = small_step_card_vs_cpu(torch, cfg, seq)
+    b2 = check_counts(cv, "small pose refine step", 2)
+    res = {"phase": "small_pose_refine_card_vs_cpu", "size": [cfg.height, cfg.width],
+           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "conf_mean": conf,
+           "max_rel_err": max(rel.values()), "tol": SMALL_POSE_RTOL,
+           "updated_params_rel_err": updated,
+           "b2_launches": b2}
+    emit(res)
+    g = updated["gradient"]
+    if not (max(rel.values()) <= SMALL_POSE_RTOL and g["G"] <= SMALL_POSE_RTOL
+            and g["Gf"] <= SMALL_POSE_RTOL):
+        raise AssertionError(f"small pose refine step, card vs CPU: {res}")
+    if not all(losses["cuda"][k] > 0 for k in ("Df_real", "Df_fake", "Gf_GAN")):
+        raise AssertionError(f"small pose refine step: face D losses {losses['cuda']}")
+    return res
+
+
+def kld_concat(cfg):
+    return cfg.replace(use_label_ref="concat", lambda_kld=1.0)
+
+
+def phase_slice_kld_concat(torch):
+    """slice_k8_512's model (face 512 px, K = 8, full width, random weights)
+    with use_label_ref='concat' and lambda_kld = 1 (z = mu at eval): 8 bf16
+    and 8 f32 frames through InferencePipeline, each with one B1 launch
+    (without label features), f32 frames against the plain attention, bf16
+    ref_idx against f32's under REF_IDX_MARGIN (random and matched key
+    encoders, as phase_slice), and per-frame ms in turns against
+    slice_k8_512's model."""
+    from fsvid2vid_tpu_torch.config import face_config
+    from fsvid2vid_tpu_torch.inference.pipeline import InferencePipeline
+    from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    base = face_config(fine_size=512, load_size=512, n_shot=8, batch_size=1,
+                       is_train=False, init_variance=1.0)
+    cfg = kld_concat(base)
+    t0 = time.perf_counter()
+    g = build(torch, cfg, seed=0)
+    torch.cuda.synchronize()
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    res = {"phase": "slice_k8_512_kld_concat", "use_label_ref": cfg.use_label_ref,
+           "lambda_kld": cfg.lambda_kld, "n_shot": cfg.n_shot, "size": cfg.fine_size,
+           "params": count(g), "vae_params": sum(count(getattr(g, n)) for n in (
+               "fc_mu_ref", "fc_var_ref", "fc")),
+           "build_seconds": time.perf_counter() - t0,
+           "weights_gb": sum(p.numel() * p.element_size() for p in g.parameters()) / 2 ** 30,
+           "frames_per_dtype": 2 * N_FRAMES}
+    labels, ref_labels, ref_images = seeded_inputs(torch, cfg, 8, N_FRAMES, seed=1)
+    counts = ak.flash_ref_attention.launches_by_route
+    zero_b1(ak)
+    torch.cuda.reset_peak_memory_stats()
+    out, by_dtype = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        before = dict(counts)
+        out[dtype] = run_frames(torch, InferencePipeline(cfg, g, compute_dtype=dtype),
+                                labels, ref_labels, ref_images)
+        by_dtype[dtype] = {r: counts[r] - before[r] for r in counts}
+    res.update(launches_by_route=dict(counts), launches_by_dtype=by_dtype,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    for dtype, (frames, ms, reset_ms, ref_idx, masses) in out.items():
+        res[dtype] = {"frame_ms": ms, "reset_ms": reset_ms, "ref_idx": ref_idx,
+                      "masses": masses, "frame_std": frames.std().item()}
+    want = {"bfloat16": {"sm90": 2 * N_FRAMES, "sm90_f32": 0, "cuda_core": 0},
+            "float32": {"sm90": 0, "sm90_f32": 2 * N_FRAMES, "cuda_core": 0}}
+    if by_dtype != want:
+        raise AssertionError(f"kld_concat launches by dtype and route {by_dtype} != {want}")
+
+    g.attention = ak.flash_ref_attention_plain
+    plain = run_frames(torch, InferencePipeline(cfg, g), labels, ref_labels, ref_images)
+    g.attention = ak.flash_ref_attention
+    err = (out["float32"][0] - plain[0]).abs().max().item()
+    res.update(f32_vs_plain_max_abs_err=err, tol=SLICE_FRAME_TOL,
+               bf16_vs_f32_max_abs_err=(out["bfloat16"][0] - out["float32"][0]).abs().max().item())
+    ref_idx_check = {"random": bf16_ref_idx_check(out["float32"][4], out["bfloat16"][3])}
+
+    # frame ms in turns against slice_k8_512's model, bf16, same inputs
+    g_base = build(torch, base, seed=0)
+    turns = []
+    for name in ("slice_k8_512", "kld_concat", "kld_concat", "slice_k8_512"):
+        net, c = (g_base, base) if name == "slice_k8_512" else (g, cfg)
+        ms = run_frames(torch, InferencePipeline(c, net, compute_dtype="bfloat16"), labels,
+                        ref_labels, ref_images)[1]
+        turns.append({"model": name, "frame_ms": ms})
+    del g_base
+    median = lambda xs: sorted(xs)[len(xs) // 2]
+    res["turns"] = turns
+    res["frame_ms_median"] = {name: median([m for t in turns if t["model"] == name
+                                            for m in t["frame_ms"]])
+                              for name in ("slice_k8_512", "kld_concat")}
+
+    with torch.no_grad():   # matched key encoders, as phase_slice
+        for part in ["first"] + list(range(cfg.n_downsample_A)):
+            getattr(g, f"atn_key_{part}").load_state_dict(
+                getattr(g, f"atn_query_{part}").state_dict())
+    matched = {d: run_frames(torch, InferencePipeline(cfg, g, compute_dtype=d), labels,
+                             ref_labels, ref_images) for d in ("float32", "bfloat16")}
+    ref_idx_check["matched"] = bf16_ref_idx_check(matched["float32"][4],
+                                                  matched["bfloat16"][3])
+    res.update(bf16_ref_idx_margin=REF_IDX_MARGIN, bf16_ref_idx=ref_idx_check)
+    emit(res)
+    if out["float32"][3] != plain[3]:
+        raise AssertionError(f"kld_concat ref_idx differs: {out['float32'][3]} vs {plain[3]}")
+    flips = [f for c in ref_idx_check.values() for f in c["flips"]]
+    if flips or not sum(c["held"] for c in ref_idx_check.values()):
+        raise AssertionError(f"kld_concat bf16 ref_idx against f32's: {ref_idx_check}")
+    if err > SLICE_FRAME_TOL:
+        raise AssertionError(f"kld_concat frames: kernel vs plain {err} > {SLICE_FRAME_TOL}")
+    del g
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_small_kld_concat(torch):
+    """A small face model at K = 2 with the VAE (lambda_kld = 1) and
+    concatenated reference labels: its first temporal f32 step, teacher
+    included, on the card against the CPU from one seed and one VAE noise
+    drawn on the CPU (`small_step_card_vs_cpu`); the attention on its
+    train-mode path, so B1 is launched no time."""
+    from fsvid2vid_tpu_torch.config import face_config
+    from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    cfg = kld_concat(face_config(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64,
+                                 n_blocks_F=2, n_downsample_G=3, n_adaptive_layers=2,
+                                 batch_size=2, niter_single=0, n_shot=2,
+                                 compute_dtype="float32"))
+    zero_b1(ak)
+    zero_counts(cv)
+    losses, conf, rel, updated = small_step_card_vs_cpu(
+        torch, cfg, train_data(torch, cfg, 2, 2, 35, device="cpu", n_refs=2),
+        lambda models: sharpen_attention(torch, cfg, models.netG))
+    b1 = b1_launches(ak)
+    res = {"phase": "small_kld_concat_card_vs_cpu", "n_shot": cfg.n_shot,
+           "size": [cfg.height, cfg.width], "losses_cuda": losses["cuda"],
+           "losses_cpu": losses["cpu"], "conf_mean": conf, "max_rel_err": max(rel.values()),
+           "tol": SMALL_KLD_RTOL, "updated_params_rel_err": updated, "b1_launches": b1,
+           "b2_launches": check_counts(cv, "small kld concat step", 2)}
+    emit(res)
+    if not (max(rel.values()) <= SMALL_KLD_RTOL and losses["cuda"]["G_KLD"] > 0
+            and updated["same_reference"]
+            and max(updated["gradient"][k] for k in ("G", "D")) <= SMALL_KLD_RTOL):
+        raise AssertionError(f"small kld concat step, card vs CPU: {res}")
+    if any(b1.values()):
+        raise AssertionError(f"B1 launched in a train step: {b1}")
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -2457,15 +2814,21 @@ def main() -> int:
     kern = phase_kernels(torch)
     cv_res = phase_cost_volume(torch)
     slice_res = phase_slice(torch)
+    kld_res = phase_slice_kld_concat(torch)
     phase_small(torch)
+    phase_small_kld_concat(torch)
     phase_k1(torch)
     train_res = phase_train(torch)
     phase_small_train(torch)
     cli_res = phase_cli(torch)
     phase_small_pose(torch)
+    small_refine_res = phase_small_pose_refine(torch)
     with tempfile.TemporaryDirectory(prefix="fsv_pose_") as pose_tmp:
         pose_res = phase_pose_cli(torch, pose_tmp)
         phase_finetune_pose(torch, pose_tmp)
+        refine_res = phase_pose_refine_cli(torch, pose_tmp)
+        phase_finetune_pose(torch, pose_tmp, "pose_refine", POSE_REFINE_FLAGS,
+                            "finetune_pose_refine")
     phase_small_finetune(torch)
     phase_small_street(torch)
     street_res = phase_street_cli(torch)
@@ -2508,23 +2871,28 @@ def main() -> int:
         "bound_ms": cv_main["f32_cuda_core_bound_ms"], "bound_by": "operations",
         "library_ms": None}
     b1_paths = {"slice_k8_512": routes["sm90"],
+                "slice_k8_512_kld_concat": kld_res["launches_by_dtype"]["bfloat16"]["sm90"],
                 "slice_k8_512_matched": slice_res["matched_launches_by_route"]["sm90"],
                 "finetune_face_512_k8": ft8_res["b1_launches_frames"]["sm90"],
                 "serve_export_k8_512": serve_res["runs"]["random"]["launches_by_route"]["sm90"],
                 "serve_export_k8_512_matched":
                     serve_res["runs"]["matched"]["launches_by_route"]["sm90"]}
     b1_f32_paths = {"slice_k8_512": routes["sm90_f32"],
+                    "slice_k8_512_kld_concat":
+                        kld_res["launches_by_dtype"]["float32"]["sm90_f32"],
                     "small_serve_k3": small_serve_res["b1_launches"]["sm90_f32"]}
     emit({"kernels": [{
         "name": "flash_ref_attention_sm90", **b1,
         "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
         "launches": sum(b1_paths.values()), "launches_by_path": b1_paths,
         "max_abs_err": bf["max_abs_err_out"],
+        "max_abs_err_without_lf": kern["slice_nolf", "bfloat16"]["max_abs_err_out"],
         **{k: bf[k] for k in keys}, "dtype": "bfloat16"}, {
         "name": "flash_ref_attention_sm90_f32", **b1,
         "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
         "launches": sum(b1_f32_paths.values()), "launches_by_path": b1_f32_paths,
         "max_abs_err": f32["max_abs_err_out"],
+        "max_abs_err_without_lf": kern["slice_nolf", "float32"]["max_abs_err_out"],
         **{k: f32[k] for k in keys}, "dtype": "float32",
         "f32_cuda_core_bound_ms": f32["f32_cuda_core_bound_ms"],
         "previous_design": b1_cuda_core}, {
@@ -2534,6 +2902,11 @@ def main() -> int:
                              "cli_train_face_256": cli_res["launches_train"]["tc"],
                              "cli_resume": cli_res["resume"]["launches"]["tc"],
                              "cli_train_pose_512x256": pose_res["launches_train"]["tc"],
+                             "cli_train_pose_refine_512x256":
+                                 refine_res["launches_train"]["tc"],
+                             "cli_pose_refine_resume": refine_res["resume"]["launches"]["tc"],
+                             "pose_refine_turns": refine_res["launches_turns"]["tc"],
+                             "small_pose_refine": small_refine_res["b2_launches"]["tc"],
                              "pose_teacher": pose_res["launches_teacher"]["tc"],
                              "cli_train_street_512": street_res["launches_train"]["tc"],
                              "street_teacher": street_res["launches_teacher"]["tc"],

@@ -15,6 +15,8 @@ comma-separated, at least --n_shot of them), --which_epoch, --finetune
 for finetune_iters steps before the first frame).  At --n_shot K > 1 each
 frame runs the attention once: on the card kernel B1, after a finetune too
 (the finetune itself runs the generator's differentiable train-mode path).
+With --refine_face (pose, --n_shot 1) the face generator is restored with G
+and refines each frame's face, and with --finetune it is adapted with G.
 The page is written to <results_dir>/<name>/<ref>_<seq>/index.html.
 """
 from __future__ import annotations
@@ -104,7 +106,8 @@ def main(argv=None) -> InferenceRun:
         finetune_seconds = time.perf_counter() - t0
         print(f"test-time finetuning done: {len(history)} steps in "
               f"{finetune_seconds:.2f} s")
-    pipe = InferencePipeline(cfg, models.netG, compute_dtype=cfg.compute_dtype)
+    pipe = InferencePipeline(cfg, models.netG, compute_dtype=cfg.compute_dtype,
+                             netGf=models.netGf)
     pipe.reset(first["ref_labels"][None], first["ref_images"][None],
                first["tgt_label"][:1])
 

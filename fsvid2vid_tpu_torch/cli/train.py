@@ -7,6 +7,9 @@ CUDA device.
   python -m fsvid2vid_tpu_torch.cli.train --name pose --dataroot datasets/pose \\
       --dataset_mode fewshot_pose --adaptive_spade --warp_ref --spade_combine \\
       --remove_face_labels --add_face_D --batchSize 4
+  python -m fsvid2vid_tpu_torch.cli.train --name pose_refine --dataroot datasets/pose \\
+      --dataset_mode fewshot_pose --adaptive_spade --warp_ref --spade_combine \\
+      --remove_face_labels --add_face_D --refine_face --batchSize 4
   python -m fsvid2vid_tpu_torch.cli.train --name street --dataroot datasets/street \\
       --dataset_mode fewshot_street --adaptive_spade --loadSize 512 --fineSize 512 \\
       --batchSize 6
@@ -32,7 +35,6 @@ UNPORTED_FLAGS = {
     "num_processes": "A.12 (data parallel)",
     "process_id": "A.12 (data parallel)",
     "adaptive_conv": "A.2 (generated main-branch conv weights)",
-    "refine_face": "A.7 (face refinement)",
 }
 # flags that main() consumes itself and that name no config field
 RUN_FLAGS = {"faithful", "tf_log", "steps_per_epoch", "flownet_ckpt", "vgg_ckpt",
@@ -153,6 +155,11 @@ def config_from_args(parser: argparse.ArgumentParser, args, is_train: bool = Tru
     cfg = preset(args.dataset_mode.replace("fewshot_", ""), **overrides)
     if args.debug:
         cfg = cfg.debug_shrink()
+    from fsvid2vid_tpu_torch.models.face_refiner import check_refine_face
+    try:
+        check_refine_face(cfg)
+    except NotImplementedError as e:
+        parser.error(str(e))
     return cfg
 
 

@@ -10,8 +10,11 @@ The steps are the port's `train_step` (training/step.py) with cfg.finetune
 set and no previous frames, under fresh Adam optimisers with TrainState's
 two-time-scale rates: G's over the filtered parameters only (the JAX
 version's masked optimiser zeroes the other updates), D's over all
-discriminators.  The other generator parameters take no gradient during the
-loop, so they leave it bitwise as they entered; buffers (spectral u / v,
+discriminators.  With refine_face the face generator netGf is filtered by
+the same names (JAX's mask walks all of params_G, 'Gf' included; `fc`
+also matches the VAE's fc_mu_ref, fc_var_ref and fc).  The other generator
+parameters take no gradient during the loop, so they leave it bitwise as
+they entered; buffers (spectral u / v,
 batch-norm statistics) advance as in any train step.  At K > 1 each step's
 target is one of the K references and the generator's attention runs its
 train-mode path (ops/attention_kernel.py `chunked_ref_attention`); every input
@@ -27,7 +30,8 @@ import torch
 
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
-from fsvid2vid_tpu_torch.training.step import StepFlags, init_prevs, train_step
+from fsvid2vid_tpu_torch.training.step import (
+    StepFlags, init_prevs, train_step, with_vae_noise)
 
 FINETUNE_NAMES = ("fc", "conv_img", "up")   # vid2vid_model.py:208
 
@@ -65,10 +69,15 @@ def finetune(cfg: Config, models: ModelBundle, ref_labels, ref_images,
     (build_models with cfg.finetune).  Returns the finetune's TrainState
     and each step's losses (0-d tensors on the models' device)."""
     ft_cfg = cfg.replace(finetune=True)
-    mask = finetune_mask(models.netG)
-    params = dict(models.netG.named_parameters())
-    state = TrainState(ft_cfg, models, params_G=[p for n, p in params.items() if mask[n]])
-    frozen = [p for n, p in params.items() if not mask[n] and p.requires_grad]
+    trained, frozen = [], []
+    for net in models.generators():
+        mask = finetune_mask(net)
+        for n, p in net.named_parameters():
+            if mask[n]:
+                trained.append(p)
+            elif p.requires_grad:
+                frozen.append(p)
+    state = TrainState(ft_cfg, models, params_G=trained)
     device = next(models.netG.parameters()).device
     on = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)
     ref_labels = np.asarray(ref_labels, np.float32)
@@ -77,6 +86,7 @@ def finetune(cfg: Config, models: ModelBundle, ref_labels, ref_images,
                 flow_gt=[None, None], conf_gt=[None, None])
     flags = StepFlags(warp_prev=False, has_prev=False)
     rng = np.random.RandomState(seed)
+    vae_gen = torch.Generator().manual_seed(seed)   # the VAE's noise (use_kld)
     history = []
     for p in frozen:
         p.requires_grad_(False)
@@ -86,6 +96,7 @@ def finetune(cfg: Config, models: ModelBundle, ref_labels, ref_images,
             tgt_label, tgt_image = random_roll_np(
                 [ref_labels[:, idx], ref_images[:, idx]], rng)
             batch = dict(refs, tgt_label=on(tgt_label), tgt_image=on(tgt_image))
+            batch = with_vae_noise(ft_cfg, batch, vae_gen)
             _, losses, _ = train_step(ft_cfg, state, batch, init_prevs(ft_cfg, batch),
                                       flags, compute_dtype=cfg.compute_dtype)
             history.append(losses)

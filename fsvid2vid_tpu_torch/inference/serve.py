@@ -178,7 +178,15 @@ def export_params(netG, path: str, dtype: torch.dtype = torch.bfloat16) -> int:
 def export_serving(cfg: Config, netG, out_dir: str,
                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, int]:
     """Export the three programs and the folded parameters of `netG` (left
-    unchanged) for its device type.  Returns the bytes of each file."""
+    unchanged) for its device type.  Returns the bytes of each file.
+    VAE (use_kld: z = mu) and use_label_ref='concat' configurations export
+    like any other; refine_face does not, as the JAX export has no face
+    refiner."""
+    if cfg.refine_face:
+        raise NotImplementedError(
+            "refine_face: the serving export has no face refiner, as the JAX export "
+            "(fsvid2vid_tpu/inference/serve.py) has none; serve it with "
+            "InferencePipeline")
     os.makedirs(out_dir, exist_ok=True)
     folded = _fold(netG)
     params = _params(folded, dtype)

@@ -67,3 +67,10 @@ def masked_l1_loss(x: Tensor, target: Tensor, mask) -> Tensor:
 
 def l1_loss(x: Tensor, target: Tensor) -> Tensor:
     return (x - target).abs().mean()
+
+
+def kld_loss(mu: Tensor, logvar: Tensor) -> Tensor:
+    """-0.5 sum(1 + logvar - mu^2 - exp(logvar)), the VAE's KL divergence
+    from the unit normal (reference loss.py:140-142), in f32."""
+    mu, logvar = mu.float(), logvar.float()
+    return -0.5 * torch.sum(1 + logvar - mu ** 2 - torch.exp(logvar))

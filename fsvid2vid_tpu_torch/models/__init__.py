@@ -31,7 +31,7 @@ def _xavier(shape, gain, generator):
 def init_weights(model: nn.Module, generator: torch.Generator,
                  gain: float = 0.02) -> nn.Module:
     """The reference's 'xavier' init (base_network.py:96-99): xavier-normal
-    weights with gain `gain`, zero biases, batch-norm scales ~ N(1, gain),
+    conv and linear weights with gain `gain`, zero biases, batch-norm scales ~ N(1, gain),
     running statistics 0 / 1.  Spectral-norm u / v start from random vectors
     refined by a few power iterations.  Draws on the CPU from `generator`,
     so a seed gives the same weights on every device."""
@@ -47,7 +47,7 @@ def init_weights(model: nn.Module, generator: torch.Generator,
                 m.folded = False
             else:
                 tensors["weight"] = w
-        elif isinstance(m, nn.Conv2d):
+        elif isinstance(m, (nn.Conv2d, nn.Linear)):
             tensors["weight"] = _xavier(tuple(m.weight.shape), gain, generator)
         elif isinstance(m, SyncBatchNorm):
             n = m.running_mean.shape[0]

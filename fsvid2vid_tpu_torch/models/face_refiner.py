@@ -1,23 +1,51 @@
-"""Face boxes and face crops of pose labels (port of the box and crop part
-of fsvid2vid_tpu/models/face_refiner.py; reference models/face_refiner.py).
+"""Face boxes, face crops and face refinement of pose frames (port of
+fsvid2vid_tpu/models/face_refiner.py; reference models/face_refiner.py).
 
 The reference finds each sample's face box with `.nonzero()` and Python
 ints (face_refiner.py:54-86); here, as in the JAX package, the box comes
-from masked min / max reductions and the crop is a fixed-shape bilinear
-sample (ops/crop.py), so boxes and crops stay on the device.  Channel-last.
-The face generator that refines the crop (`refine_face`) is not ported.
+from masked min / max reductions and the crop and the paste are fixed-shape
+bilinear samples (ops/crop.py), so boxes, crops and pastes stay on the
+device.  Channel-last, as the JAX functions; the face generator netGf
+(`FewShotGenerator(..., for_face=True)`) runs NCHW inside
+`refine_face_region`.
 """
 from __future__ import annotations
 
 import torch
 
 from fsvid2vid_tpu_torch.config import Config
-from fsvid2vid_tpu_torch.ops.crop import crop_resize
+from fsvid2vid_tpu_torch.ops.crop import crop_resize, paste_region
 
 
 def face_size_of(cfg: Config) -> int:
     """Side of the square face crop (face_refiner.py:21)."""
     return int(cfg.fine_size / cfg.aspect_ratio) // 4
+
+
+def face_refiner_config(cfg: Config) -> Config:
+    """The face generator's configuration (JAX training/state.py:56-66,
+    reference base_model.py:175-181): one downsampling and one adaptive
+    layer fewer, 3-channel labels (the crop's last three channels), square
+    face_size crops."""
+    fs = face_size_of(cfg)
+    return cfg.replace(
+        n_downsample_G=cfg.n_downsample_G - 1,
+        n_adaptive_layers=(cfg.n_adaptive_layers - 1 if cfg.n_adaptive_layers > 0
+                           else cfg.n_adaptive_layers),
+        input_nc=cfg.output_nc, fine_size=fs, load_size=fs, aspect_ratio=1.0)
+
+
+def check_refine_face(cfg: Config) -> None:
+    """Face refinement runs at n_shot 1 only: the JAX package's refiner
+    keeps n_shot in its config but is handed one reference, so it fails
+    there at n_shot > 1 (ROADMAP.md C), and the port does not add what the
+    JAX package lacks."""
+    if cfg.refine_face and cfg.n_shot > 1:
+        raise NotImplementedError(
+            f"refine_face at n_shot {cfg.n_shot}: the JAX package's face refiner runs "
+            "at n_shot 1 only (face_refiner_config keeps n_shot, refine_face_region "
+            "passes one reference; its init fails with TypeError: cannot reshape "
+            "array; ROADMAP.md C)")
 
 
 def get_face_boxes(cfg: Config, pose: torch.Tensor,
@@ -80,3 +108,34 @@ def crop_face_region(cfg: Config, image, input_label: torch.Tensor,
                 for im in image]
     fs = face_size_of(cfg)
     return crop_resize(image[..., -3:], boxes, (fs, fs))
+
+
+def replace_face_region(cfg: Config, fake_image, fake_face, input_label,
+                        fake_face_coarse=None, crop_smaller: int = 0, boxes=None):
+    """The refined face (the residual `fake_face` added to the coarse crop),
+    clamped to [-1, 1] and pasted into the face box of `fake_image`
+    (face_refiner.py:43-51)."""
+    if boxes is None:
+        boxes = get_face_boxes(cfg, input_label, crop_smaller)
+    face = fake_face if fake_face_coarse is None else fake_face + fake_face_coarse
+    return paste_region(fake_image, face.clamp(-1.0, 1.0), boxes)
+
+
+def refine_face_region(cfg: Config, netGf, label_valid, fake_image, label,
+                       ref_label_valid, ref_image, ref_label):
+    """Crop the target's and the picked reference's faces, run the face
+    generator `netGf` on the coarse face, paste the result back
+    (face_refiner.py:24-29).  Labels and images (B, H, W, C); the coarse face
+    is detached, as the JAX stop_gradient, so G's gradient reaches the
+    refined frame only outside the face box."""
+    boxes = get_face_boxes(cfg, label, crop_smaller=4)
+    label_face, coarse_face = crop_face_region(
+        cfg, [label_valid, fake_image], label, crop_smaller=4, boxes=boxes)
+    ref_label_face, ref_img_face = crop_face_region(
+        cfg, [ref_label_valid, ref_image], ref_label, crop_smaller=4)
+    coarse_face = coarse_face.detach()
+    nchw = lambda x: x.movedim(-1, -3)
+    fake_face = netGf.forward_face(nchw(label_face), nchw(ref_label_face)[:, None],
+                                   nchw(ref_img_face)[:, None], nchw(coarse_face))
+    return replace_face_region(cfg, fake_image, fake_face.movedim(-3, -1), label,
+                               coarse_face, crop_smaller=4, boxes=boxes)

@@ -6,12 +6,15 @@ Ported: the reference encoder with its K-reference attention, the weight
 generation (fc stacks with the reference's flat-split order), the flow
 branches, the SPADE-combine embeddings and the main branch, plus the two
 serving caches (`encode_reference` for K = 1, `encode_reference_multi` for
-K > 1).  The K > 1 attention follows the JAX package's rule: at eval it
-runs kernel B1 (ops/attention_kernel.py; on the card the hand-written CUDA
-kernel, on the CPU its plain version); in train mode, which B1 cannot serve
-because it has no backward, it runs `chunked_ref_attention`
-(ops/attention_kernel.py, B1's plain version), the differentiable
-query-chunked softmax of the JAX module's non-flash branch.
+K > 1), the VAE bottleneck (`use_kld`), reference labels concatenated to the
+reference images (`use_label_ref='concat'`) beside the multiplied default,
+and the face-refinement generator (`for_face`, `forward_face`).  The K > 1
+attention follows the JAX package's rule: at eval it runs kernel B1
+(ops/attention_kernel.py; on the card the hand-written CUDA kernel, on the
+CPU its plain version); in train mode, which B1 cannot serve because it has
+no backward, it runs `chunked_ref_attention` (ops/attention_kernel.py, B1's
+plain version), the differentiable query-chunked softmax of the JAX
+module's non-flash branch.
 
 `forward` follows `module.training`.  In train mode batch norms use batch
 statistics and every spectral-norm layer advances its u / v once per call,
@@ -22,8 +25,19 @@ references and its query encoder once over the B targets.  With cfg.remat
 the up blocks, the flow nets and the SC embedders are recomputed in the
 backward instead of keeping their activations (models/remat.py).
 
-Not ported: the VAE branch (use_kld), adaptive_conv, and the
-face-refinement forward.  They raise.
+The VAE bottleneck (`_compute_kld`) maps the encoded reference to
+mu = fc_mu_ref(x) and back through `fc` (the reference's name for JAX's
+fc_kld); in train mode z = eps exp(logvar / 2) + mu with the caller's eps
+(training/step.py `with_vae_noise` draws it from a CPU torch.Generator, so
+the card and the CPU draw the same z), at eval z = mu.  x is flattened
+channel-last, the JAX package's order, so that its dense kernels carry over
+by a transpose.
+
+`for_face` builds the face refiner netGf (JAX `FewShotGenerator(...,
+for_face=True)`): no flow branches, no SPADE-combine maps, no VAE layers, so
+that it holds exactly the layers the JAX init of `forward_face` creates.
+
+Not ported: adaptive_conv.  It raises.
 """
 from __future__ import annotations
 
@@ -31,6 +45,7 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.models.embedder import LabelEmbedder, channel_schedule
@@ -52,18 +67,25 @@ def pick_ref(refs: torch.Tensor, ref_idx: Optional[torch.Tensor]) -> torch.Tenso
     return refs[torch.arange(refs.shape[0], device=refs.device), ref_idx]
 
 
+# the VAE's latent size (reference generator.py:137) and the grid the fc
+# stacks pool each reference feature map to under use_label_ref='concat'
+Z_DIM = 256
+FC_POOL = (32, 32)
+
+
 class FewShotGenerator(nn.Module):
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, for_face: bool = False):
         super().__init__()
-        if cfg.use_kld:
-            raise NotImplementedError("the VAE branch (use_kld) is not ported")
         if cfg.adaptive_conv:
             raise NotImplementedError("adaptive_conv is not ported")
-        if cfg.use_label_ref != "mul":
+        if cfg.use_label_ref not in ("mul", "concat"):
             raise NotImplementedError(
-                f"use_label_ref={cfg.use_label_ref!r} is not ported (every "
-                "preset uses 'mul')")
+                f"use_label_ref={cfg.use_label_ref!r}: the port takes 'mul' or "
+                "'concat'; 'concat,mul' fails in the JAX package itself "
+                "(AttributeError: 'NoneType' object has no attribute 'shape'; "
+                "ROADMAP.md C)")
         self.cfg = cfg
+        self.for_face = for_face
         # the K > 1 attention at eval (B1); a check may swap in its plain
         # version.  Train mode takes chunked_ref_attention
         # with an energy of at most atn_chunk_elems elements per chunk (the
@@ -76,14 +98,19 @@ class FewShotGenerator(nn.Module):
         self.adap_spade = cfg.adaptive_spade
         self.adap_embed = cfg.adap_embed
         self.n_adaptive = cfg.n_adaptive
-        self.warp_ref = cfg.warp_ref
+        self.warp_ref = cfg.warp_ref and not for_face
+        self.mul_label_ref = cfg.use_label_ref == "mul"
         norm, norm_ref = cfg.norm_G, cfg.norm_G.replace("spade", "")
-        label_nc = cfg.gen_input_nc
+        # the face refiner takes the last three channels of the label crop
+        label_nc = cfg.input_nc if for_face else cfg.gen_input_nc
 
-        # --- reference encoder; reference labels are encoded beside the
-        # images and multiplied in (use_label_ref='mul') ---
-        self.ref_img_first = SpadeConv2d(cfg.output_nc, cfg.ngf, norm_ref)
-        self.ref_label_first = SpadeConv2d(label_nc, cfg.ngf, norm_ref)
+        # --- reference encoder: reference labels are encoded beside the
+        # images and multiplied in ('mul'), or concatenated to the images
+        # ('concat') ---
+        ref_nc = cfg.output_nc + (0 if self.mul_label_ref else label_nc)
+        self.ref_img_first = SpadeConv2d(ref_nc, cfg.ngf, norm_ref)
+        if self.mul_label_ref:
+            self.ref_label_first = SpadeConv2d(label_nc, cfg.ngf, norm_ref)
         for i in range(nd):
             if cfg.res_for_ref:
                 down = SpadeResnetBlock(ch[i], ch[i + 1], norm_ref, stride=2)
@@ -93,18 +120,21 @@ class FewShotGenerator(nn.Module):
                 up = SpadeConv2d(ch[i + 1], ch[i], norm_ref)
             setattr(self, f"ref_img_down_{i}", down)
             setattr(self, f"ref_img_up_{i}", up)
-            setattr(self, f"ref_label_down_{i}",
-                    SpadeConv2d(ch[i], ch[i + 1], norm_ref, stride=2))
-            setattr(self, f"ref_label_up_{i}",
-                    SpadeConv2d(ch[i + 1], ch[i], norm_ref))
+            if self.mul_label_ref:
+                setattr(self, f"ref_label_down_{i}",
+                        SpadeConv2d(ch[i], ch[i + 1], norm_ref, stride=2))
+                setattr(self, f"ref_label_up_{i}",
+                        SpadeConv2d(ch[i + 1], ch[i], norm_ref))
 
-        # --- weight-generation fc stacks (reference generator.py:79-110) ---
+        # --- weight-generation fc stacks (reference generator.py:79-110);
+        # 'mul' feeds them rows of the image-label outer product, 'concat'
+        # each channel of the feature map pooled to FC_POOL ---
         if self.adap_spade:
             sks2, eks2 = cfg.spade_ks ** 2, cfg.embed_ks ** 2
             for i in range(self.n_adaptive):
                 ch_in, ch_out = ch[i], ch[i + 1]
                 ch_h = self.hidden_ncs(i)[0]
-                fc_in = ch[min(nd, i + 1)]
+                fc_in = ch[min(nd, i + 1)] if self.mul_label_ref else FC_POOL[0] * FC_POOL[1]
                 outs = [("fc_spade_0", (ch_h * sks2 + 1) * 2),
                         ("fc_spade_1", (ch_h * sks2 + 1) * (1 if ch_in != ch_out else 2)),
                         ("fc_spade_s", (ch_h * sks2 + 1) * 2)]
@@ -138,6 +168,15 @@ class FewShotGenerator(nn.Module):
                 setattr(self, f"atn_query_{i}",
                         SpadeConv2d(ch[i], ch[i + 1], norm_ref, stride=2))
 
+        # --- VAE bottleneck (reference generator.py:137-144); the face
+        # refiner encodes its coarse input instead and has none ---
+        if cfg.use_kld and not for_face:
+            sw = cfg.fine_size // 2 ** nd
+            f_dim = min(1024, cfg.ngf * 2 ** nd) * int(sw / cfg.aspect_ratio) * sw
+            self.fc_mu_ref = nn.Linear(f_dim, Z_DIM)
+            self.fc_var_ref = nn.Linear(f_dim, Z_DIM)
+            self.fc = nn.Linear(Z_DIM, f_dim)
+
         # --- flow branches (reference generator.py:146-179); a shared
         # network is registered under both names, as the reference does ---
         if self.warp_ref:
@@ -145,7 +184,7 @@ class FewShotGenerator(nn.Module):
             if cfg.spade_combine:
                 self.img_ref_embedding = LabelEmbedder(
                     cfg.output_nc + 1, cfg.sc_arch, cfg.ngf, nd)
-        if cfg.n_frames_G > 1:
+        if cfg.n_frames_G > 1 and not for_face:
             self.flow_network_temp = (
                 self.flow_network_ref if cfg.flow_temp_is_shared
                 else FlowGenerator(cfg, cfg.n_frames_G))
@@ -163,8 +202,10 @@ class FewShotGenerator(nn.Module):
         return module(*args)
 
     def hidden_ncs(self, i: int) -> List[int]:
-        """SPADE modulation-map channels at layer i."""
-        if self.cfg.spade_combine and i < self.cfg.n_sc_layers:
+        """SPADE modulation-map channels at layer i: the label embedding's,
+        and with spade_combine the two warped-image embeddings' (the face
+        refiner modulates with the label alone)."""
+        if self.cfg.spade_combine and i < self.cfg.n_sc_layers and not self.for_face:
             return [self.ch[i]] * 3
         return [self.ch[i]]
 
@@ -222,18 +263,29 @@ class FewShotGenerator(nn.Module):
     def _ref_encode_prefix(self, img_ref, label_ref):
         """Label-independent part of the reference encoding: first convs,
         downs up to the attention point, and the attention keys."""
-        x = self.ref_img_first(img_ref)
-        x_label = self.ref_label_first(label_ref)
+        if self.mul_label_ref:
+            x = self.ref_img_first(img_ref)
+            x_label = self.ref_label_first(label_ref)
+        else:
+            x = self.ref_img_first(torch.cat([img_ref, label_ref], 1))
+            x_label = None
         for i in range(self._n_pre()):
-            x = getattr(self, f"ref_img_down_{i}")(x)
-            x_label = getattr(self, f"ref_label_down_{i}")(x_label)
+            x, x_label = self._ref_down(i, x, x_label)
         key = None
         if self.cfg.n_shot > 1 and 1 <= self.cfg.n_downsample_A <= self.nd:
             key = self._attention_encode(label_ref, "key")
         return dict(x=x, x_label=x_label, key=key)
 
+    def _ref_down(self, i, x, x_label):
+        x = getattr(self, f"ref_img_down_{i}")(x)
+        if x_label is not None:
+            x_label = getattr(self, f"ref_label_down_{i}")(x_label)
+        return x, x_label
+
     def _reference_encoding(self, img_ref, label_ref, label, prefix=None):
-        """img_ref / label_ref flattened to (B*K, C, H, W)."""
+        """img_ref / label_ref flattened to (B*K, C, H, W).  The encoded
+        references are the image-label outer products (B, C, C) under 'mul',
+        the image features (B, C, h, w) under 'concat'."""
         cfg = self.cfg
         if prefix is None:
             prefix = self._ref_encode_prefix(img_ref, label_ref)
@@ -244,12 +296,15 @@ class FewShotGenerator(nn.Module):
                 x, x_label, label, label_ref, key=key)
             ref_idx = torch.argmax(atn, 1)
         for i in range(self._n_pre(), self.nd):
-            x = getattr(self, f"ref_img_down_{i}")(x)
-            x_label = getattr(self, f"ref_label_down_{i}")(x_label)
+            x, x_label = self._ref_down(i, x, x_label)
 
-        enc_img, enc_label = [x], [x_label]
+        enc_img = [x]
         for i in reversed(range(self.nd)):
             enc_img.append(getattr(self, f"ref_img_up_{i}")(enc_img[-1]))
+        if not self.mul_label_ref:
+            return x, enc_img[::-1], atn, atn_vis, ref_idx
+        enc_label = [x_label]
+        for i in reversed(range(self.nd)):
             enc_label.append(getattr(self, f"ref_label_up_{i}")(enc_label[-1]))
         encoded_ref = []
         for conv, conv_label in zip(enc_img, enc_label):
@@ -264,8 +319,12 @@ class FewShotGenerator(nn.Module):
     # (reference base_network.py:142-167)
     # ------------------------------------------------------------------
     def _run_fc(self, name, i, feat):
-        """feat: (B, C, C) image-label outer product.  Returns the flat
+        """feat: (B, C, C) image-label outer product ('mul') or (B, C, h, w)
+        features ('concat', each channel pooled to FC_POOL as torch's
+        adaptive average pool buckets it).  Returns the flat
         (B, C * fc_out) of the reference's fc(x).view(b, -1)."""
+        if not self.mul_label_ref:
+            feat = F.adaptive_avg_pool2d(feat, FC_POOL).flatten(2)
         b, rows, c = feat.shape
         return getattr(self, f"{name}_{i}")(feat.reshape(b * rows, c)).reshape(b, -1)
 
@@ -311,13 +370,16 @@ class FewShotGenerator(nn.Module):
     # ------------------------------------------------------------------
     # weight generation (reference generator.py:396-422)
     # ------------------------------------------------------------------
-    def weight_generation(self, img_refs, label_refs, label, prefix=None):
+    def weight_generation(self, img_refs, label_refs, label, prefix=None,
+                          img_coarse=None, vae_eps=None):
         """img_refs / label_refs: (B, K, C, H, W).  Returns (x, gen) with gen =
-        dict(embedding_weights, norm_weights, atn, atn_vis, ref_idx)."""
+        dict(embedding_weights, norm_weights, atn, atn_vis, ref_idx, mu,
+        logvar); x is the bottleneck after `_compute_kld`."""
         img_flat = img_refs.flatten(0, 1)
         label_flat = label_refs.flatten(0, 1)
         x, encoded_ref, atn, atn_vis, ref_idx = self._reference_encoding(
             img_flat, label_flat, label, prefix=prefix)
+        x, mu, logvar = self._compute_kld(x, label, img_coarse, vae_eps)
         embedding_weights, norm_weights = [], []
         if self.adap_spade:
             for i in range(self.n_adaptive):
@@ -327,7 +389,39 @@ class FewShotGenerator(nn.Module):
                 norm_weights.append(nw)
         return x, dict(embedding_weights=embedding_weights,
                        norm_weights=norm_weights, atn=atn, atn_vis=atn_vis,
-                       ref_idx=ref_idx)
+                       ref_idx=ref_idx, mu=mu, logvar=logvar)
+
+    # ------------------------------------------------------------------
+    # VAE bottleneck (reference generator.py:319-338)
+    # ------------------------------------------------------------------
+    def _compute_kld(self, x, label, img_coarse, vae_eps):
+        """The bottleneck that the main branch starts from, with mu and
+        logvar (None where the branch has none).  Face refinement encodes
+        the coarse face (with its label under 'concat') through the
+        reference image encoder; use_kld maps x through the VAE; else x."""
+        if img_coarse is not None:
+            if not self.mul_label_ref:
+                img_coarse = torch.cat([img_coarse, label], 1)
+            xk = self.ref_img_first(img_coarse)
+            for i in range(self.nd):
+                xk = getattr(self, f"ref_img_down_{i}")(xk)
+            return xk, None, None
+        if not self.cfg.use_kld:
+            return x, None, None
+        b, c, h, w = x.shape
+        flat = x.permute(0, 2, 3, 1).reshape(b, -1)
+        mu = self.fc_mu_ref(flat)
+        logvar = None
+        if self.training:
+            if vae_eps is None:
+                raise ValueError("use_kld in train mode draws z = eps exp(logvar / 2) + mu: "
+                                 "pass vae_eps (B, 256)")
+            logvar = self.fc_var_ref(flat)
+            z = vae_eps.to(device=mu.device, dtype=mu.dtype) * torch.exp(0.5 * logvar) + mu
+        else:
+            z = mu
+        xk = self.fc(z).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return xk, mu, logvar
 
     # ------------------------------------------------------------------
     # flow (reference generator.py:424-445)
@@ -433,18 +527,22 @@ class FewShotGenerator(nn.Module):
     # public entry points
     # ------------------------------------------------------------------
     def forward(self, label, label_refs, img_refs, prev_label=None,
-                prev_img=None, warp_prev: bool = False, prefix=None):
+                prev_img=None, warp_prev: bool = False, prefix=None,
+                vae_eps: Optional[torch.Tensor] = None):
         """Full forward (reference generator.py:181-229), at eval or in train
         mode.
 
         label: (B, Cl, H, W); label_refs / img_refs: (B, K, C, H, W);
         prev_label / prev_img: previous frames stacked on channels, or None;
-        prefix: the encode_reference_multi cache (K > 1).  Returns a dict with
-        img_final, flow, flow_mask, img_raw, img_warp, atn_vis, ref_idx and,
-        at K > 1, atn: each reference's attention mass (B, K), whose argmax
-        is ref_idx."""
+        prefix: the encode_reference_multi cache (K > 1); vae_eps: the
+        VAE's noise (B, 256), needed in train mode with use_kld.  Returns a
+        dict with img_final, flow, flow_mask, img_raw, img_warp, atn_vis,
+        ref_idx, mu and logvar (use_kld; logvar in train mode only) and, at
+        K > 1, atn: each reference's attention mass (B, K), whose argmax is
+        ref_idx."""
         cfg = self.cfg
-        x, gen = self.weight_generation(img_refs, label_refs, label, prefix=prefix)
+        x, gen = self.weight_generation(img_refs, label_refs, label, prefix=prefix,
+                                        vae_eps=vae_eps)
         img_final, img_raw, flow, flow_mask, img_warp = self._synthesize_from(
             x, gen, label, label_refs, img_refs, prev_label, prev_img, warp_prev)
         if not cfg.spade_combine:
@@ -458,7 +556,24 @@ class FewShotGenerator(nn.Module):
             img_raw = img_raw_out
         return dict(img_final=img_final, flow=flow, flow_mask=flow_mask,
                     img_raw=img_raw, img_warp=img_warp, atn_vis=gen["atn_vis"],
-                    ref_idx=gen["ref_idx"], atn=gen["atn"])
+                    ref_idx=gen["ref_idx"], atn=gen["atn"], mu=gen["mu"],
+                    logvar=gen["logvar"])
+
+    def forward_face(self, label, label_refs, img_refs, img_coarse):
+        """The face refiner's forward (reference generator.py:232-242): the
+        coarse face crop (B, 3, h, w), encoded by the reference image
+        encoder, is the bottleneck, which the up blocks modulate with the
+        face crop's label (B, 3, h, w) under weights generated from the
+        reference crops (B, K, 3, h, w).  Returns the face residual."""
+        x, gen = self.weight_generation(img_refs, label_refs, label, img_coarse=img_coarse)
+        encoded_label = self.label_embedding(
+            label, weights=gen["embedding_weights"] if self.adap_embed else None)
+        for i in range(self.nd, -1, -1):
+            nw = gen["norm_weights"][i] if self.adap_spade and i < self.n_adaptive else None
+            x = self._call(getattr(self, f"up_{i}"), x, encoded_label[i], nw)
+            if i > 0:
+                x = upsample_nearest(x)
+        return torch.tanh(self.conv_img(leaky_relu(x)))
 
     def encode_reference(self, label_refs, img_refs, label) -> Dict:
         """K = 1 serving cache: the bottleneck and the generated weights,

@@ -3,8 +3,9 @@ reference base_model.py:51-93 and models/models.py:48-62), with torch.save
 in place of orbax.
 
 The full train state is saved, as the JAX package saves it: the state dicts
-of G, D, the temporal D and the face D (spectral u / v and batch-norm statistics are
-buffers, so they are in them), both Adam states, the step, the VGG19
+of G, the face generator Gf (refine_face), D, the temporal D and the face D
+(spectral u / v and batch-norm statistics are buffers, so they are in them),
+both Adam states (G's over G's and Gf's parameters), the step, the VGG19
 weights, and the (epoch, iter) cursor that replaces the reference's
 `iter.txt`.  Layout: `<checkpoints_dir>/<name>/{latest,epoch_N}`, one file
 each, plus `config.json`.  A file is written under a temporary name and
@@ -20,7 +21,8 @@ import torch
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
 
-NETWORKS = {"G": "netG", "D": "netD", "DT": "netDT", "Df": "netDf", "vgg": "vgg"}
+NETWORKS = {"G": "netG", "Gf": "netGf", "D": "netD", "DT": "netDT", "Df": "netDf",
+            "vgg": "vgg"}
 
 
 def ckpt_dir(cfg: Config) -> str:

@@ -2,12 +2,15 @@
 reference models/models.py create_model + base_model.define_networks).
 
 Every network training can need is built up front: the generator (with its
-temporal flow branch), the image discriminator, the temporal discriminator
+temporal flow branch), with refine_face the face generator netGf (at
+n_shot 1 only, models/face_refiner.py `check_refine_face`), the image
+discriminator, the temporal discriminator
 when n_frames_G > 1, the face-region discriminator with add_face_D (on
 face_size x face_size crops of [reference face, face], 2 x output_nc
 channels), and the frozen VGG19 of the perceptual loss.  The train
 state owns them and two Adam optimizers with the reference's two-time-scale
-rule (G lr / 2, D lr * 2, betas (0, beta2); `no_TTUR`: lr, (beta1, 0.999))
+rule (G's over netG's and netGf's parameters, as JAX keeps both in
+params_G under one opt_G) (G lr / 2, D lr * 2, betas (0, beta2); `no_TTUR`: lr, (beta1, 0.999))
 and its linear decay after `niter` epochs.  Parameters, optimizer moments,
 norm statistics and spectral u / v stay f32.
 """
@@ -24,6 +27,7 @@ from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.models import (
     build_on_device, init_plain_convs, init_weights)
 from fsvid2vid_tpu_torch.models.discriminator import MultiscaleDiscriminator
+from fsvid2vid_tpu_torch.models.face_refiner import check_refine_face, face_refiner_config
 from fsvid2vid_tpu_torch.models.generator import FewShotGenerator
 from fsvid2vid_tpu_torch.models.layers import _SpectralNormed
 from fsvid2vid_tpu_torch.models.vgg import Vgg19Features
@@ -37,9 +41,13 @@ class ModelBundle:
     netDT: Optional[MultiscaleDiscriminator]
     vgg: Optional[Vgg19Features]
     netDf: Optional[MultiscaleDiscriminator] = None
+    netGf: Optional[FewShotGenerator] = None
 
     def discriminators(self):
         return [d for d in (self.netD, self.netDT, self.netDf) if d is not None]
+
+    def generators(self):
+        return [g for g in (self.netG, self.netGf) if g is not None]
 
 
 def build_models(cfg: Config, device=None,
@@ -49,8 +57,7 @@ def build_models(cfg: Config, device=None,
     cfg.seed when None): G and the discriminators with the reference's xavier
     init in train mode, VGG19 frozen with a seeded stand-in for the
     pretrained weights."""
-    if cfg.refine_face:
-        raise NotImplementedError("refine_face is not ported")
+    check_refine_face(cfg)
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
@@ -63,6 +70,8 @@ def build_models(cfg: Config, device=None,
         return init_weights(net, generator, cfg.init_variance).train()
 
     netG = make(lambda: FewShotGenerator(cfg))
+    netGf = (make(lambda: FewShotGenerator(face_refiner_config(cfg), for_face=True))
+             if cfg.refine_face else None)
     netD = netDT = netDf = vgg = None
     if cfg.is_train or cfg.finetune:
         feat = not cfg.no_ganFeat_loss
@@ -81,7 +90,7 @@ def build_models(cfg: Config, device=None,
         if not cfg.no_vgg_loss:
             vgg = init_plain_convs(build_on_device(Vgg19Features, device), generator)
             vgg.eval().requires_grad_(False)
-    return ModelBundle(cfg, netG, netD, netDT, vgg, netDf)
+    return ModelBundle(cfg, netG, netD, netDT, vgg, netDf, netGf)
 
 
 def lr_for_epoch(cfg: Config, epoch: int) -> float:
@@ -99,8 +108,8 @@ def ttur_lrs(cfg: Config, base_lr: float):
 
 class TrainState:
     """The models, their two optimizers and the step count.  `params_G`
-    names the generator parameters opt_G trains (all of netG's by default;
-    test-time finetune passes its subset)."""
+    names the generator parameters opt_G trains (all of netG's and netGf's
+    by default; test-time finetune passes its subset)."""
 
     def __init__(self, cfg: Config, models: ModelBundle,
                  params_G: Optional[Iterable[nn.Parameter]] = None):
@@ -113,7 +122,7 @@ class TrainState:
         g_lr, d_lr = ttur_lrs(cfg, cfg.lr)
         params_D = [p for d in models.discriminators() for p in d.parameters()]
         if params_G is None:
-            params_G = models.netG.parameters()
+            params_G = [p for g in models.generators() for p in g.parameters()]
         self.opt_G = torch.optim.Adam(params_G, lr=g_lr, betas=betas)
         self.opt_D = torch.optim.Adam(params_D, lr=d_lr, betas=betas)
         self.step = 0

@@ -15,8 +15,18 @@ previous-label buffer holds the encoded labels.
          ref_labels (B, K, H, W, Cl), ref_images (B, K, H, W, 3), and
          optionally flow_gt / conf_gt = [ref, prev] with (B, H, W, 2 | 1)
          entries or None (the flow teacher's output for this frame)
+         and, with use_kld, vae_eps (B, 256), the VAE's noise
+         (`with_vae_noise` draws it on the CPU, so that the card and the
+         CPU draw the same z)
   prevs: label (B, H, W, Cl (n_frames_G - 1)), real and fake
          (B, H, W, 3 (n_frames_G - 1))
+
+With refine_face the face generator netGf refines the face region of each
+generated frame (models/face_refiner.py `refine_face_region`) before
+anything scores it, in both steps, and trains under G's optimiser; its
+spectral u / v and batch statistics advance on each of its passes, as the
+JAX step's mutated Gf collections.  With use_kld the G losses hold G_KLD,
+the VAE's KL divergence times lambda_kld.
 
 `compute_dtype="bfloat16"` runs the networks' convolutions and matrix
 products in bf16 under autocast; parameters, optimizer moments, norm
@@ -32,7 +42,8 @@ The two steps differ as in the JAX package:
   * `train_step_faithful` runs the generator twice, as the reference does
     (without gradient for the D update, with gradient for the G update), so
     G's and D's u / v advance twice per step, the G phase seeing the values
-    the D phase left.
+    the D phase left.  Both generations take the step's one VAE noise, as
+    the JAX step reuses one rng (the reference draws two; ROADMAP.md C).
 """
 from __future__ import annotations
 
@@ -44,7 +55,9 @@ import torch
 
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.losses import collector as lc
-from fsvid2vid_tpu_torch.models.generator import pick_ref
+from fsvid2vid_tpu_torch.losses.gan import kld_loss
+from fsvid2vid_tpu_torch.models.face_refiner import refine_face_region
+from fsvid2vid_tpu_torch.models.generator import Z_DIM, pick_ref
 from fsvid2vid_tpu_torch.models.input_process import (
     combine_fg_mask, encode_label, get_fg_mask, use_valid_labels)
 from fsvid2vid_tpu_torch.models.remat import remat
@@ -106,9 +119,9 @@ def _autocast(device: torch.device, compute_dtype: str):
 
 def generate_images(cfg: Config, models: ModelBundle, batch, prevs,
                     flags: StepFlags):
-    """One frame's generation (reference vid2vid_model.generate_images).
-    The generator runs in the mode it is in.  Returns (outputs, masks, refs)
-    with NCHW tensors."""
+    """One frame's generation (reference vid2vid_model.generate_images),
+    face refinement included.  The generators run in the mode they are in.
+    Returns (outputs, masks, refs) with NCHW tensors."""
     tgt_label, ref_labels = batch["tgt_label"], batch["ref_labels"]
     ref_images = batch["ref_images"]
     tgt_label_valid = use_valid_labels(cfg, tgt_label)
@@ -117,9 +130,16 @@ def generate_images(cfg: Config, models: ModelBundle, batch, prevs,
     prev_i = _nchw(prevs["fake"]) if flags.has_prev else None
 
     out = models.netG(_nchw(tgt_label_valid), _nchw(ref_labels_valid),
-                      _nchw(ref_images), prev_l, prev_i, warp_prev=flags.warp_prev)
+                      _nchw(ref_images), prev_l, prev_i, warp_prev=flags.warp_prev,
+                      vae_eps=batch.get("vae_eps"))
     ref_idx = out["ref_idx"]
     ref_label = pick_ref(ref_labels, ref_idx)
+    fake_image = out["img_final"]
+    if cfg.refine_face:
+        fake_image = refine_face_region(
+            cfg, models.netGf, tgt_label_valid, fake_image.movedim(1, -1), tgt_label,
+            pick_ref(ref_labels_valid, ref_idx), pick_ref(ref_images, ref_idx),
+            ref_label).movedim(-1, 1)
 
     fg_mask = _nchw(get_fg_mask(cfg, tgt_label))
     ref_fg_mask = _nchw(get_fg_mask(cfg, ref_label))
@@ -127,9 +147,9 @@ def generate_images(cfg: Config, models: ModelBundle, batch, prevs,
     if fake_raw is not None and cfg.has_fg:
         fake_raw = fake_raw * combine_fg_mask(fg_mask, ref_fg_mask, True)
 
-    outputs = dict(fake_image=out["img_final"], fake_raw=fake_raw,
+    outputs = dict(fake_image=fake_image, fake_raw=fake_raw,
                    warped=out["img_warp"], flow=out["flow"],
-                   flow_mask=out["flow_mask"],
+                   flow_mask=out["flow_mask"], mu=out["mu"], logvar=out["logvar"],
                    tgt_label_valid=_nchw(tgt_label_valid))
     masks = dict(fg=fg_mask, ref_fg=ref_fg_mask)
     refs = dict(label=_nchw(ref_label), image=_nchw(pick_ref(ref_images, ref_idx)))
@@ -204,6 +224,8 @@ def _g_losses(cfg, models, batch_n, prevs, flags, outputs, masks, refs):
     losses["F_Mask"] = lc.compute_mask_losses(
         cfg, outputs["flow_mask"], outputs["warped"], tgt_image, fake_image,
         batch_n["tgt_label"], masks["fg"], masks["ref_fg"], body_mask_diff)
+    if cfg.use_kld:
+        losses["G_KLD"] = kld_loss(outputs["mu"], outputs["logvar"]) * cfg.lambda_kld
     return sum(losses.values()), losses
 
 
@@ -229,17 +251,30 @@ def _d_losses(cfg, models, generated, batch_n, prevs, flags, outputs, masks, ref
     return sum(losses.values()), losses
 
 
+def with_vae_noise(cfg: Config, batch, generator: torch.Generator):
+    """`batch` with the VAE's noise vae_eps (B, Z_DIM) when use_kld is on:
+    drawn with torch.randn from `generator`, a CPU generator, and moved to
+    the batch's device.  Without use_kld the batch is returned as it is."""
+    if not cfg.use_kld:
+        return batch
+    image = batch["tgt_image"]
+    eps = torch.randn(image.shape[0], Z_DIM, generator=generator)
+    return dict(batch, vae_eps=eps.to(image.device))
+
+
 def _prepare(cfg, state: TrainState, batch, flags: StepFlags):
     """The models in train mode, the batch with its labels encoded
-    (reference encode_input), and the NCHW views the losses take."""
+    (reference encode_input) and, with use_kld, its VAE noise, and the NCHW
+    views the losses take."""
     if flags.use_pool and not {"pool_fake", "pool_mask"} <= set(batch):
         raise ValueError("use_pool needs pool_fake and pool_mask in the batch")
     batch = dict(batch, tgt_label=encode_label(cfg, batch["tgt_label"]),
                  ref_labels=encode_label(cfg, batch["ref_labels"]))
+    if cfg.use_kld and batch.get("vae_eps") is None:
+        raise ValueError("use_kld: the batch needs the VAE's noise vae_eps (with_vae_noise)")
     models = state.models
-    models.netG.train()
-    for d in models.discriminators():
-        d.train()
+    for net in models.generators() + models.discriminators():
+        net.train()
     gt = lambda key: [_nchw(x) for x in batch.get(key, [None, None])]
     batch_n = dict(tgt_image=_nchw(batch["tgt_image"]),
                    tgt_label=_nchw(batch["tgt_label"]), flow_gt=gt("flow_gt"),

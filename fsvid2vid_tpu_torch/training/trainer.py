@@ -32,7 +32,7 @@ from fsvid2vid_tpu_torch.training import checkpoint as ckpt_lib
 from fsvid2vid_tpu_torch.training.state import (
     ModelBundle, TrainState, build_models, set_epoch_lr)
 from fsvid2vid_tpu_torch.training.step import (
-    StepFlags, init_prevs, train_step, train_step_faithful)
+    StepFlags, init_prevs, train_step, train_step_faithful, with_vae_noise)
 from fsvid2vid_tpu_torch.utils.image_pool import ImagePool
 from fsvid2vid_tpu_torch.utils.visualizer import display_visuals
 
@@ -121,7 +121,8 @@ class Trainer:
             # base_model.py:57-66)
             stored = ckpt_lib.load(cfg, base_dir=cfg.load_pretrain)
             if stored is not None:
-                ckpt_lib.restore_models(self.models, stored, keys=("G", "D", "DT", "Df"))
+                ckpt_lib.restore_models(self.models, stored,
+                                        keys=("G", "Gf", "D", "DT", "Df"))
                 self.log(f"warm-started weights from {cfg.load_pretrain}")
             else:
                 self.log(f"WARNING: --load_pretrain dir {cfg.load_pretrain} "
@@ -172,6 +173,10 @@ class Trainer:
             prevs = None
             seq_losses: Dict[str, torch.Tensor] = {}
             visuals = None
+            # the VAE's noise, seeded per sequence so that a resumed run draws
+            # what an uninterrupted one would
+            vae_gen = (torch.Generator().manual_seed(
+                (cfg.seed * 100003 + epoch) * 100003 + idx) if cfg.use_kld else None)
             for t in range(T):
                 batch_t = {"tgt_label": seq["tgt_label"][:, t],
                            "tgt_image": seq["tgt_image"][:, t],
@@ -188,7 +193,7 @@ class Trainer:
                 flags = StepFlags(warp_prev=warp_prev, has_prev=warp_prev and t > 0,
                                   use_pool=self.pool is not None)
                 prevs, losses, visuals = self.step_fn(
-                    cfg, self.state, batch_t, prevs, flags,
+                    cfg, self.state, with_vae_noise(cfg, batch_t, vae_gen), prevs, flags,
                     compute_dtype=cfg.compute_dtype)
                 if self.pool is not None:
                     self.pool.commit(visuals["fake_image"].float().cpu().numpy())

@@ -45,7 +45,8 @@ def torch_key(mods, cfg: Config) -> str:
     Handles the weight-generation fc stacks (Sequential indices 2k and
     2 * n_fc_layers), the embedders' Sequential wrappers (conv at .0 for
     conv_first / down, .1 for up behind an Upsample), the flow networks'
-    flat Sequentials, and the attribute-named modules, which match 1:1."""
+    flat Sequentials, the VAE's `fc_kld` (the reference's `fc`), and the
+    attribute-named modules, which match 1:1 (netGf's too)."""
     mods = list(mods)
     out = []
     i = 0
@@ -90,7 +91,7 @@ def torch_key(mods, cfg: Config) -> str:
                 out += [m, nxt]
             i += 2
             continue
-        out.append(m)
+        out.append("fc" if m == "fc_kld" else m)
         i += 1
     return ".".join(out)
 

@@ -6,7 +6,9 @@ fsvid2vid_tpu_torch.cli.test` on its checkpoint; the same for pose
 street (`--dataset_mode fewshot_street`, one-hot labels) on synthetic
 datasets, and `cli.test --finetune` from the street checkpoint with its
 discriminators restored; every flag the port cannot honour yet, and a
-missing card, exit non-zero with a message naming why."""
+missing card, exit non-zero with a message naming why, and the flags it
+honours since the pose slices (--refine_face among them) reach the
+config."""
 import os
 import subprocess
 import sys
@@ -98,7 +100,7 @@ def test_continue_train_resumes_in_process(data, tmp_path):
 UNPORTED = [
     (["--distributed"], "A.12"), (["--coordinator_address", "h:1"], "A.12"),
     (["--num_processes", "2"], "A.12"), (["--process_id", "1"], "A.12"),
-    (["--adaptive_conv"], "A.2"), (["--refine_face"], "A.7"),
+    (["--adaptive_conv"], "A.2"),
 ]
 
 
@@ -117,7 +119,9 @@ def test_unported_flags_exit_naming_their_item(data, tmp_path, capsys, flags, it
 POSE_FLAGS = {"remat": (["--remat"], "remat"),
               "add_face_D": (["--add_face_D"], "add_face_D"),
               "fewshot_pose": (["--dataset_mode", "fewshot_pose"], "is_pose"),
-              "fewshot_street": (["--dataset_mode", "fewshot_street"], "is_street")}
+              "fewshot_street": (["--dataset_mode", "fewshot_street"], "is_street"),
+              "refine_face": (["--dataset_mode", "fewshot_pose", "--refine_face"],
+                              "refine_face")}
 
 
 @pytest.mark.parametrize("name", list(POSE_FLAGS))
@@ -127,7 +131,7 @@ def test_pose_flags_are_accepted_and_reach_the_config(data, tmp_path, name):
     cfg = cli_train.config_from_args(parser, parser.parse_args(
         train_argv(data, str(tmp_path), "--device", "cpu") + flags))
     assert getattr(cfg, field) is True
-    if name == "fewshot_pose":   # the pose preset: 6-channel labels, remat on
+    if name in ("fewshot_pose", "refine_face"):   # the pose preset: 6-channel labels, remat on
         assert (cfg.input_nc, cfg.aspect_ratio, cfg.remat, cfg.add_face_D) == (6, 0.5, True, True)
     elif name == "fewshot_street":   # the street preset: 20 classes at 2:1, random crops
         assert (cfg.label_nc, cfg.gen_input_nc, cfg.aspect_ratio, cfg.resize_or_crop) == (

@@ -5,7 +5,9 @@ and one whose output saturated at every pixel in every step (tanh exactly
 +-1, so its derivative and every G gradient exactly 0, in the JAX package as
 well); it fails one whose update was dropped and one whose generator was cut
 off from its losses (its gradient zeroed where the output saturated
-nowhere).  A small pose model, two finetune steps in f32.
+nowhere).  A small pose model, two finetune steps in f32.  With refine_face the gate reads
+the face generator netGf by the same rule
+(`generators_moved_as_their_gradients_allow`).
 """
 import os
 
@@ -85,3 +87,42 @@ def test_finetune_gate(refs, case, holds):
     if case == "cut_off":
         assert g["saturated_steps"] == [] and g["zero_grad_steps"] == list(range(ITERS))
     assert cs.g_moved_as_its_gradients_allow(res) is holds
+
+
+GF_RUNS = {}
+
+
+def gf_record(refs):
+    """A refine_face finetune's record, G's and netGf's, as chip_smoke.py's
+    finetune phase writes it."""
+    if "moved" not in GF_RUNS:
+        cfg = small_cfg().replace(refine_face=True)
+        models = build_models(cfg, device="cpu", generator=torch.Generator().manual_seed(33))
+        nets = {"g": models.netG, "gf": models.netGf}
+        before = {k: [p.detach().clone() for p in net.parameters()] for k, net in nets.items()}
+        hooks = {k: cs.watch_output_layer(torch, net) for k, net in nets.items()}
+        try:
+            _, history = ft.finetune(cfg, models, *refs, seed=5)
+        finally:
+            for _, _, unhook in hooks.values():
+                unhook()
+        res = {"iters": len(history)}
+        for k, net in nets.items():
+            res[f"{k}_params_moved"] = sum(int(not torch.equal(p, q)) for p, q in zip(
+                net.parameters(), before[k]))
+            res[f"{k}_gradients"] = cs.g_gradient_record(*hooks[k][:2], len(history))
+        GF_RUNS["moved"] = res
+    return dict(GF_RUNS["moved"])
+
+
+@pytest.mark.parametrize("case, holds", [("moved", True), ("gf_dropped_update", False)])
+def test_finetune_gate_holds_the_face_generator(refs, case, holds):
+    """The gate of a refine_face finetune reads netGf's output layer by G's
+    rule: a netGf that moved holds it, one whose update was dropped fails
+    it although G moved."""
+    res = gf_record(refs)
+    assert res["iters"] == ITERS and res["gf_gradients"]["conv_img_calls"] == ITERS
+    if case == "gf_dropped_update":
+        res["gf_params_moved"] = 0
+    assert res["g_params_moved"] > 0 and cs.g_moved_as_its_gradients_allow(res)
+    assert cs.generators_moved_as_their_gradients_allow(res) is holds

@@ -256,13 +256,19 @@ def test_flow_and_mask_losses(rng, prev):
 
 @pytest.mark.parametrize("kw", [dict(netD_subarch="adaptive"), dict(lambda_kld=1.0)])
 def test_unported_loss_terms_raise(kw):
-    """The face D and the pose terms are ported (tests/test_torch_pose_losses.py);
-    the adaptive discriminator and the KLD loss are not: building the
-    networks of a face or pose training configuration that asks for them
-    raises, and the same pose configuration without them builds."""
+    """The face D and the pose terms are ported (tests/test_torch_pose_losses.py),
+    and so is the KLD loss with the VAE it scores
+    (tests/test_torch_kld_concat.py); the adaptive discriminator is not:
+    building the networks of a face or pose training configuration that
+    asks for it raises, one that asks for the KLD loss builds with the VAE's
+    layers, and the same pose configuration without either builds."""
     tiny = dict(ngf=4, ndf=4, fine_size=32, load_size=32, n_downsample_G=3,
                 n_adaptive_layers=2, no_vgg_loss=True)
     for preset in (tconfig.face_config, tconfig.pose_config):
+        if "lambda_kld" in kw:
+            netG = build_models(preset(**tiny, **kw), device="cpu").netG
+            assert {"fc_mu_ref", "fc_var_ref", "fc"} <= {n for n, _ in netG.named_children()}
+            continue
         with pytest.raises(NotImplementedError):
             build_models(preset(**tiny, **kw), device="cpu")
     assert build_models(tconfig.pose_config(**tiny), device="cpu").netDf is not None
