@@ -56,7 +56,17 @@ to end at the full width of face_config:
     attention-kernel launch per frame, beside the pipeline, with the
     profiling hooks around two frames (`phase_serve_export_k8`); the K = 1
     face-256 model exported in f32 against the pipeline; a small K = 3
-    model's saved programs on the card against the CPU.
+    model's saved programs on the card against the CPU;
+  * generated main-branch conv weights (adaptive_conv) and the adaptive
+    discriminator: the K = 8 / 512 px model with adaptive_conv, one
+    attention-kernel launch per frame, in turns against the plain model
+    (`phase_slice_adaptive_conv`); `cli.train --adaptive_conv --netD_subarch
+    adaptive` for face 256 at phase_cli's width, a resume, turns against
+    phase_cli's model and `cli.test` (`phase_cli_adaptive`); `cli.test
+    --finetune` on its checkpoint, 100 steps (`finetune_face_adaptive`); a
+    small K = 2 model with both features, its step on the card against the
+    CPU and its saved programs at K = 1 and K = 2 against the pipeline
+    (`phase_small_adaptive`).
 
 Each phase prints one JSON line; the kernels line comes before the last
 line, and the last line is
@@ -1581,9 +1591,73 @@ def watch_output_layer(torch, netG):
     return saturated, zero_grad, lambda: [h.remove() for h in hooks]
 
 
+def watch_face_output(torch, netGf):
+    """`watch_output_layer` for the face generator netGf, whose output
+    reaches the frame through more than its tanh: replace_face_region adds
+    it to the detached coarse face, clamps the sum to [-1, 1] and pastes it
+    into the face box, so a pixel passes a gradient back only where its tanh
+    is not exactly +-1, the sum lies inside the clamp and the paste reads it.
+    Per refinement (replace_face_region with a coarse face, wrapped here),
+    whether no pixel does (`face_output_stopped`); per backward, whether
+    `conv_img.weight`'s gradient is exactly 0.  Returns the two lists and
+    the remover of the hook and the wrapper."""
+    from fsvid2vid_tpu_torch.models import face_refiner
+    real = face_refiner.replace_face_region
+    stopped, zero_grad = [], []
+
+    def watched(cfg, fake_image, fake_face, input_label, fake_face_coarse=None,
+                crop_smaller=0, boxes=None):
+        if fake_face_coarse is not None:
+            stopped.append(face_output_stopped(torch, real, cfg, fake_image, fake_face,
+                                               input_label, fake_face_coarse, crop_smaller,
+                                               boxes))
+        return real(cfg, fake_image, fake_face, input_label, fake_face_coarse,
+                    crop_smaller, boxes)
+
+    face_refiner.replace_face_region = watched
+    hook = netGf.conv_img.weight.register_hook(lambda g: zero_grad.append((g == 0).all()))
+
+    def remove():
+        face_refiner.replace_face_region = real
+        hook.remove()
+    return stopped, zero_grad, remove
+
+
+def face_output_stopped(torch, replace, cfg, fake_image, fake_face, input_label,
+                        coarse, crop_smaller, boxes):
+    """Whether no pixel of the refined face `fake_face` (netGf's tanh
+    output) passes a gradient to the frame that `replace`
+    (replace_face_region) makes of it: each pixel's tanh is exactly +-1, or
+    the derivative of the frame's sum with respect to it, through the clamp
+    and the paste's nonnegative bilinear weights, is exactly 0.  A 0-d
+    tensor, read after the run."""
+    with torch.enable_grad():
+        face = fake_face.detach().requires_grad_()
+        frame = replace(cfg, fake_image.detach(), face, input_label, coarse.detach(),
+                        crop_smaller, boxes)
+        reach, = torch.autograd.grad(frame.sum(), face)
+    return ((face.abs() == 1) | (reach == 0)).all()
+
+
+def watch_fc_conv(torch, netG):
+    """With adaptive_conv, a hook on the output layer of the generated
+    conv weights' stack nearest the image (`fc_conv_0_0`): per backward,
+    whether its weight's gradient is exactly 0.  Returns that list and the
+    hook's remover, or None without adaptive_conv."""
+    stack = getattr(netG, "fc_conv_0_0", None)
+    if stack is None:
+        return None
+    zero_grad = []
+    hook = stack[-1].weight_orig.register_hook(lambda g: zero_grad.append((g == 0).all()))
+    return zero_grad, hook.remove
+
+
 def g_gradient_record(saturated, zero_grad, iters):
     """Steps of a finetune whose output saturated at every pixel (all of the
-    step's conv_img calls), and steps whose conv_img gradient was exactly 0."""
+    step's conv_img calls), and steps whose conv_img gradient was exactly 0.
+    For netGf, `saturated` is `watch_face_output`'s list: a step counts as
+    saturated when its refined face passed no gradient to the frame at any
+    pixel."""
     per_step = max(len(saturated) // iters, 1)
     sat = [i for i in range(iters)
            if all(bool(s) for s in saturated[i * per_step:(i + 1) * per_step])]
@@ -1600,16 +1674,34 @@ def g_moved_as_its_gradients_allow(res):
     checkpoint whose bf16 output is saturated everywhere, which gives G no
     gradient in the JAX package as well, does not."""
     iters, g = res["iters"], res["g_gradients"]
+    fc = res.get("g_fc_conv")    # adaptive_conv: the generated conv weights' stacks, by the same rule
     return (g["conv_img_calls"] > 0 and g["conv_img_calls"] % iters == 0
             and g["conv_img_grads"] == iters
             and g["saturated_steps"] == g["zero_grad_steps"]
-            and (res["g_params_moved"] > 0 or len(g["zero_grad_steps"]) == iters))
+            and (res["g_params_moved"] > 0 or len(g["zero_grad_steps"]) == iters)
+            and (fc is None or (fc["grads"] == iters
+                                and fc["zero_grad_steps"] == g["saturated_steps"]
+                                and (fc["params_moved"] > 0
+                                     or len(g["saturated_steps"]) == iters))))
+
+
+def fc_conv_record(torch, netG, zero_grad, before):
+    """`g_fc_conv` of a finetune record: the fc_conv output layer's
+    backward count, the steps whose gradient there was exactly 0, and the
+    fc_conv parameters moved."""
+    return {"grads": len(zero_grad),
+            "zero_grad_steps": [i for i, z in enumerate(zero_grad) if bool(z)],
+            "params_moved": sum(int(not torch.equal(p, before[n]))
+                                for n, p in netG.named_parameters()
+                                if n.startswith("fc_conv_"))}
 
 
 def generators_moved_as_their_gradients_allow(res):
     """`g_moved_as_its_gradients_allow` for G and, where the finetune has
-    one (refine_face), for the face generator netGf by the same rule: its
-    output layer's tanh saturates in bf16 as G's does."""
+    one (refine_face), for the face generator netGf by the same rule, where
+    its output passes no gradient when, at every pixel, its tanh saturates in
+    bf16 as G's does, or replace_face_region's clamp or paste stops it
+    (`watch_face_output`)."""
     gf = {"iters": res["iters"], "g_gradients": res.get("gf_gradients"),
           "g_params_moved": res.get("gf_params_moved")}
     return g_moved_as_its_gradients_allow(res) and (
@@ -1619,24 +1711,28 @@ def generators_moved_as_their_gradients_allow(res):
 def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetune_pose"):
     """scripts/pose/test.sh: `cli.test --dataset_mode fewshot_pose ...
     --finetune` on the checkpoint `name` that `phase_pose_cli` (or, with
-    --refine_face among `flags`, `phase_pose_refine_cli`) left in `tmp`,
-    with the reference's 100 iterations at the slice's full width, then
-    POSE_TEST_FRAMES frames.  The finetune is observed through its module
-    function: the G (and netGf) parameters outside finetune_mask leave it
-    bitwise as they entered, some inside it move
-    (`generators_moved_as_their_gradients_allow`), and so do the image and
-    face discriminators' (the temporal one sees no frame sequence)."""
+    --refine_face among `flags`, `phase_pose_refine_cli`; or, with face
+    `flags`, `phase_cli_adaptive`) left in `tmp`, with the reference's 100
+    iterations at the slice's full width, then POSE_TEST_FRAMES frames.  The
+    finetune is observed through its module function: the G (and netGf)
+    parameters outside finetune_mask leave it bitwise as they entered, some
+    inside it move (`generators_moved_as_their_gradients_allow`, which reads
+    the fc_conv stacks too with adaptive_conv), and so do the image and face
+    discriminators' (the temporal one sees no frame sequence), the adaptive
+    D's encoder and fc among them.  The finetune has no flow teacher, as in
+    the JAX package, so B2 is launched no time in it."""
     import os
     from fsvid2vid_tpu_torch.cli import test as cli_test
     from fsvid2vid_tpu_torch.inference import finetune as ft_lib
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
     res = {"phase": phase}
     data, ckpts = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
     real = ft_lib.finetune
 
-    def watched(net):
+    def watched(net, watch):
         mask = ft_lib.finetune_mask(net)
         before = {n: p.detach().clone() for n, p in net.named_parameters()}
-        return mask, before, watch_output_layer(torch, net)
+        return mask, before, watch(torch, net)
 
     def record(key, net, mask, before, saturated, zero_grad, iters):
         params = dict(net.named_parameters())
@@ -1649,10 +1745,14 @@ def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetu
     def observed(cfg, models, *args, **kw):
         nets = {"g": models.netG, "gf": models.netGf}
         nets = {k: v for k, v in nets.items() if v is not None}
-        watch = {k: watched(net) for k, net in nets.items()}
+        watch = {k: watched(net, watch_face_output if k == "gf" else watch_output_layer)
+                 for k, net in nets.items()}
+        fc_watch = watch_fc_conv(torch, models.netG)
         nets_D = {k: getattr(models, "net" + k) for k in ("D", "DT", "Df")}
+        nets_D = {k: v for k, v in nets_D.items() if v is not None}
         before_D = {k: [p.detach().clone() for p in net.parameters()]
                     for k, net in nets_D.items()}
+        zero_counts(cv)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -1661,10 +1761,15 @@ def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetu
         finally:
             for _, _, (_, _, unhook) in watch.values():
                 unhook()
+            if fc_watch is not None:
+                fc_watch[1]()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        res["b2_launches"] = dict(cv.cost_volume_cuda.launches_by_route)
         for k, (mask, before, (saturated, zero_grad, _)) in watch.items():
             record(k, nets[k], mask, before, saturated, zero_grad, len(out[1]))
+        if fc_watch is not None:
+            res["g_fc_conv"] = fc_conv_record(torch, models.netG, fc_watch[0], watch["g"][1])
         res.update(
             iters=len(out[1]), seconds=seconds, ms_per_step=1e3 * seconds / len(out[1]),
             peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -1672,6 +1777,11 @@ def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetu
             d_params_moved={k: [sum(int(not torch.equal(p, q)) for p, q in zip(
                 net.parameters(), before_D[k])), len(before_D[k])]
                 for k, net in nets_D.items()},
+            # the adaptive D's kernel generators: [moved, of]
+            d_adaptive_moved=[sum(int(not torch.equal(p, q)) for (n, p), q in zip(
+                nets_D["D"].named_parameters(), before_D["D"]) if ".encoder_" in n or ".fc_" in n),
+                sum(1 for n, _ in nets_D["D"].named_parameters()
+                    if ".encoder_" in n or ".fc_" in n)],
             losses_first={k: v.item() for k, v in out[1][0].items()},
             losses_last={k: v.item() for k, v in out[1][-1].items()},
             compute_dtype=cfg.compute_dtype, remat=cfg.remat, add_face_D=cfg.add_face_D,
@@ -1701,6 +1811,7 @@ def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetu
             or ("--refine_face" in flags) != ("gf_gradients" in res)
             or any(moved < 0.9 * of for k, (moved, of) in res["d_params_moved"].items()
                    if k != "DT")
+            or res["d_adaptive_moved"][0] != res["d_adaptive_moved"][1]
             or out.nonfinite_frames or not all(v == v and abs(v) != float("inf")
                                                for v in losses)):
         raise AssertionError(f"{phase}: {res}")
@@ -1926,27 +2037,35 @@ def kld_concat(cfg):
 
 
 def phase_slice_kld_concat(torch):
+    """slice_k8_512's model with use_label_ref='concat' and lambda_kld = 1
+    (z = mu at eval): `phase_slice_variant`, with B1 without label
+    features."""
+    def describe(cfg, g):
+        count = lambda m: sum(p.numel() for p in m.parameters())
+        return {"use_label_ref": cfg.use_label_ref, "lambda_kld": cfg.lambda_kld,
+                "vae_params": sum(count(getattr(g, n)) for n in ("fc_mu_ref", "fc_var_ref", "fc"))}
+    return phase_slice_variant(torch, "slice_k8_512_kld_concat", "kld_concat", kld_concat,
+                               describe)
+
+
+def phase_slice_variant(torch, phase, variant, make_cfg, describe):
     """slice_k8_512's model (face 512 px, K = 8, full width, random weights)
-    with use_label_ref='concat' and lambda_kld = 1 (z = mu at eval): 8 bf16
-    and 8 f32 frames through InferencePipeline, each with one B1 launch
-    (without label features), f32 frames against the plain attention, bf16
-    ref_idx against f32's under REF_IDX_MARGIN (random and matched key
-    encoders, as phase_slice), and per-frame ms in turns against
-    slice_k8_512's model."""
+    as `make_cfg` changes its configuration: 8 bf16 and 8 f32 frames through
+    InferencePipeline, each with one B1 launch, f32 frames against the plain
+    attention, bf16 ref_idx against f32's under REF_IDX_MARGIN (random and
+    matched key encoders, as phase_slice), and per-frame ms in turns against
+    slice_k8_512's model.  `describe(cfg, g)` adds the variant's own keys."""
     from fsvid2vid_tpu_torch.config import face_config
     from fsvid2vid_tpu_torch.inference.pipeline import InferencePipeline
     from fsvid2vid_tpu_torch.ops import attention_kernel as ak
     base = face_config(fine_size=512, load_size=512, n_shot=8, batch_size=1,
                        is_train=False, init_variance=1.0)
-    cfg = kld_concat(base)
+    cfg = make_cfg(base)
     t0 = time.perf_counter()
     g = build(torch, cfg, seed=0)
     torch.cuda.synchronize()
-    count = lambda m: sum(p.numel() for p in m.parameters())
-    res = {"phase": "slice_k8_512_kld_concat", "use_label_ref": cfg.use_label_ref,
-           "lambda_kld": cfg.lambda_kld, "n_shot": cfg.n_shot, "size": cfg.fine_size,
-           "params": count(g), "vae_params": sum(count(getattr(g, n)) for n in (
-               "fc_mu_ref", "fc_var_ref", "fc")),
+    res = {"phase": phase, "n_shot": cfg.n_shot, "size": cfg.fine_size,
+           "params": sum(p.numel() for p in g.parameters()), **describe(cfg, g),
            "build_seconds": time.perf_counter() - t0,
            "weights_gb": sum(p.numel() * p.element_size() for p in g.parameters()) / 2 ** 30,
            "frames_per_dtype": 2 * N_FRAMES}
@@ -1968,7 +2087,7 @@ def phase_slice_kld_concat(torch):
     want = {"bfloat16": {"sm90": 2 * N_FRAMES, "sm90_f32": 0, "cuda_core": 0},
             "float32": {"sm90": 0, "sm90_f32": 2 * N_FRAMES, "cuda_core": 0}}
     if by_dtype != want:
-        raise AssertionError(f"kld_concat launches by dtype and route {by_dtype} != {want}")
+        raise AssertionError(f"{variant} launches by dtype and route {by_dtype} != {want}")
 
     g.attention = ak.flash_ref_attention_plain
     plain = run_frames(torch, InferencePipeline(cfg, g), labels, ref_labels, ref_images)
@@ -1981,7 +2100,7 @@ def phase_slice_kld_concat(torch):
     # frame ms in turns against slice_k8_512's model, bf16, same inputs
     g_base = build(torch, base, seed=0)
     turns = []
-    for name in ("slice_k8_512", "kld_concat", "kld_concat", "slice_k8_512"):
+    for name in ("slice_k8_512", variant, variant, "slice_k8_512"):
         net, c = (g_base, base) if name == "slice_k8_512" else (g, cfg)
         ms = run_frames(torch, InferencePipeline(c, net, compute_dtype="bfloat16"), labels,
                         ref_labels, ref_images)[1]
@@ -1991,7 +2110,7 @@ def phase_slice_kld_concat(torch):
     res["turns"] = turns
     res["frame_ms_median"] = {name: median([m for t in turns if t["model"] == name
                                             for m in t["frame_ms"]])
-                              for name in ("slice_k8_512", "kld_concat")}
+                              for name in ("slice_k8_512", variant)}
 
     with torch.no_grad():   # matched key encoders, as phase_slice
         for part in ["first"] + list(range(cfg.n_downsample_A)):
@@ -2004,12 +2123,12 @@ def phase_slice_kld_concat(torch):
     res.update(bf16_ref_idx_margin=REF_IDX_MARGIN, bf16_ref_idx=ref_idx_check)
     emit(res)
     if out["float32"][3] != plain[3]:
-        raise AssertionError(f"kld_concat ref_idx differs: {out['float32'][3]} vs {plain[3]}")
+        raise AssertionError(f"{variant} ref_idx differs: {out['float32'][3]} vs {plain[3]}")
     flips = [f for c in ref_idx_check.values() for f in c["flips"]]
     if flips or not sum(c["held"] for c in ref_idx_check.values()):
-        raise AssertionError(f"kld_concat bf16 ref_idx against f32's: {ref_idx_check}")
+        raise AssertionError(f"{variant} bf16 ref_idx against f32's: {ref_idx_check}")
     if err > SLICE_FRAME_TOL:
-        raise AssertionError(f"kld_concat frames: kernel vs plain {err} > {SLICE_FRAME_TOL}")
+        raise AssertionError(f"{variant} frames: kernel vs plain {err} > {SLICE_FRAME_TOL}")
     del g
     torch.cuda.empty_cache()
     return res
@@ -2046,6 +2165,247 @@ def phase_small_kld_concat(torch):
         raise AssertionError(f"small kld concat step, card vs CPU: {res}")
     if any(b1.values()):
         raise AssertionError(f"B1 launched in a train step: {b1}")
+    return res
+
+
+# ----------------------------------------------------------------------
+# generated main-branch conv weights (adaptive_conv) and the adaptive
+# discriminator (netD_subarch 'adaptive', which pools the encoded reference
+# with adaptive_avg_pool)
+# ----------------------------------------------------------------------
+ADAPTIVE_FLAGS = ["--adaptive_conv", "--netD_subarch", "adaptive"]
+ADAPTIVE_TURNS = ("adaptive", "plain", "plain", "adaptive")
+# face_config at 256 px: G with the fc_conv stacks and without the adaptive
+# up blocks' own convs, and the adaptive D on the 4-channel label + image
+ADAPTIVE_G_PARAMS, ADAPTIVE_D_PARAMS = 116_208_618, 2_863_073
+SMALL_ADAPTIVE_RTOL = 1e-3   # small K = 2 model, card against CPU: losses, gradients
+
+
+def adaptive_tensors(models):
+    """The tensors the two features add: G's fc_conv stacks, the adaptive
+    D's encoder_<n> and fc_<n>, by name."""
+    out = {f"G.{n}": p for n, p in models.netG.named_parameters() if n.startswith("fc_conv_")}
+    out.update({f"D.{n}": p for n, p in models.netD.named_parameters()
+                if ".encoder_" in n or ".fc_" in n})
+    return out
+
+
+def phase_cli_adaptive(torch, tmp):
+    """scripts/face/train_256.sh with --adaptive_conv --netD_subarch
+    adaptive at phase_cli's full width (256 px, ngf 32, ndf 32, num_D 1,
+    VGG19 and the FlowNet2 teacher on, bf16, batch 4, 4 loader threads) on
+    phase_cli's dataset, written to `tmp`: `cli.train` (setup and fit, as
+    its main) for one single-frame and one temporal epoch of CLI_STEPS
+    iterations (B2 once per flow computation), a resume, turns that time
+    this model and phase_cli's on the same loaded batches, one profiled
+    temporal sequence of each, the checkpoint's size, then `cli.test` for
+    CLI_TEST_FRAMES frames.  Leaves the
+    checkpoint `face_adaptive` in `tmp` for finetune_face_adaptive."""
+    import math
+    import os
+    import warnings
+    from fsvid2vid_tpu_torch.cli import test as cli_test
+    from fsvid2vid_tpu_torch.cli import train as cli_train
+    from fsvid2vid_tpu_torch.data.loader import SequenceLoader
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.training import checkpoint as ckpt
+    from fsvid2vid_tpu_torch.training.trainer import Trainer
+    res = {"phase": "cli_train_face_256_adaptive"}
+    warnings.filterwarnings("ignore", message="Polyfit may be poorly conditioned")
+    data = write_face_dataset(os.path.join(tmp, "data"), seed=41)
+    ckpts = os.path.join(tmp, "checkpoints")
+    argv = ["--name", "face_adaptive", "--dataroot", data, "--checkpoints_dir", ckpts,
+            "--batchSize", "4", "--niter", "2", "--niter_single", "1", "--niter_decay", "0",
+            "--steps_per_epoch", str(CLI_STEPS), "--save_epoch_freq", "1000",
+            "--print_freq", "4", "--display_freq", "4"] + ADAPTIVE_FLAGS
+    parser = cli_train.build_arg_parser()
+
+    # ---- train: epoch 1 single-frame, epoch 2 temporal (2 frames) ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(cv)
+    t0 = time.perf_counter()
+    run = cli_train.setup(parser.parse_args(argv), parser)
+    initial = {k: v.detach().clone() for k, v in adaptive_tensors(run.trainer.models).items()}
+    run.trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
+    run.vis.close()
+    torch.cuda.synchronize()
+    res["train_seconds"] = time.perf_counter() - t0
+    res["launches_train"] = check_counts(cv, "adaptive cli train", CLI_STEPS * 3)
+    cfg, trainer = run.cfg, run.trainer
+    count = lambda net: sum(p.numel() for p in net.parameters())
+    res["params"] = {"G": count(trainer.models.netG), "D": count(trainer.models.netD)}
+    res["config"] = {k: getattr(cfg, k) for k in (
+        "fine_size", "batch_size", "ngf", "ndf", "num_D", "n_downsample_G",
+        "n_adaptive_layers", "adaptive_conv", "netD_subarch", "adaptive_D_layers",
+        "netD_input_nc", "num_workers", "compute_dtype", "no_vgg_loss", "no_flow_gt")}
+    moved = {k: not torch.equal(v, initial[k])
+             for k, v in adaptive_tensors(trainer.models).items()}
+    res["adaptive_tensors_moved"] = [sum(moved.values()), len(moved)]
+    res["epoch_losses"] = trainer.epoch_metrics
+    res["sequences"] = sequence_times(trainer.timings)
+    bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
+           if not math.isfinite(v)]
+    if sorted(trainer.epoch_metrics) != [1, 2] or bad:
+        raise AssertionError(f"adaptive cli train epochs {sorted(trainer.epoch_metrics)}, "
+                             f"non-finite losses {bad}")
+    if res["params"] != {"G": ADAPTIVE_G_PARAMS, "D": ADAPTIVE_D_PARAMS}:
+        raise AssertionError(f"adaptive parameter counts {res['params']}")
+    if not all(moved.values()) or not any(k.startswith("G.fc_conv_") for k in moved):
+        raise AssertionError(f"adaptive tensors that did not move: "
+                             f"{[k for k, m in moved.items() if not m]}")
+
+    # ---- resume at epoch 3 with the saved state, then finish it ----
+    saved = {k: v.clone() for k, v in trained_tensors(trainer).items()}
+    del run, trainer, initial
+    torch.cuda.empty_cache()
+    zero_counts(cv)
+    resumed = cli_train.setup(parser.parse_args(argv + ["--continue_train", "--niter", "3"]),
+                              parser)
+    trainer = resumed.trainer
+    got = trained_tensors(trainer)
+    differ = [k for k, v in saved.items() if k not in got or not torch.equal(got[k], v)]
+    if (trainer.start_epoch, trainer.epoch_iter) != (3, 0) or differ or len(got) != len(saved):
+        raise AssertionError(f"adaptive resume at {(trainer.start_epoch, trainer.epoch_iter)}, "
+                             f"differs: {differ[:5]}")
+    res["resume"] = {"start_epoch": trainer.start_epoch, "tensors_equal": len(saved)}
+    del saved
+    trainer.fit(resumed.make_data_iter, resumed.teacher)
+    resumed.vis.close()
+    res["resume"]["launches"] = check_counts(cv, "adaptive cli resume", CLI_STEPS * 2)
+    res["resume"]["sequences"] = sequence_times(trainer.timings)
+
+    # ---- turns: this model against phase_cli's on the same loaded batches,
+    # with the same teacher ----
+    plain = Trainer(cfg.replace(name="face_plain", adaptive_conv=False,
+                                netD_subarch="n_layers"),
+                    log_fn=lambda _: None, device=resumed.device)
+    plain.setup()
+    loader = SequenceLoader(cfg, steps_per_epoch=CLI_STEPS, seed=cfg.seed)
+    loader.set_epoch_frames(2)
+    loaded = list(loader.epoch(3))
+    zero_counts(cv)
+    turns = []
+    for turn in ADAPTIVE_TURNS:
+        tr = trainer if turn == "adaptive" else plain
+        n0 = len(tr.timings)
+        tr.train_epoch(3, iter(loaded), resumed.teacher)
+        turns.append({"turn": turn, "ms_per_step": [
+            t["ms_per_step"] for t in sequence_times(tr.timings[n0:])]})
+    # one more temporal sequence of each model under torch.profiler: kernels
+    # and launches, the grouped convolutions of the generated weights among them
+    res["profiled_sequence"] = {
+        kind: profile_call(torch, lambda: tr.train_epoch(3, iter(loaded[:1]), resumed.teacher))
+        for kind, tr in (("adaptive", trainer), ("plain", plain))}
+    res["launches_turns"] = check_counts(cv, "adaptive turns",
+                                         (len(ADAPTIVE_TURNS) * CLI_STEPS + 2) * 2)
+    mean = lambda kind: (sum(sum(t["ms_per_step"]) for t in turns if t["turn"] == kind)
+                         / sum(len(t["ms_per_step"]) for t in turns if t["turn"] == kind))
+    res["turns"] = turns
+    res["ms_per_step"] = {kind: mean(kind) for kind in ("adaptive", "plain")}
+    res["adaptive_cost_share"] = res["ms_per_step"]["adaptive"] / res["ms_per_step"]["plain"] - 1
+    del plain, loaded
+
+    # ---- the checkpoint, then inference from latest ----
+    path = ckpt.save(cfg, trainer.state, 4)
+    res["checkpoint_bytes"] = os.path.getsize(path)
+    res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del resumed, trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    web = cli_test.main([
+        "--name", "face_adaptive", "--dataroot", data, "--checkpoints_dir", ckpts,
+        "--results_dir", os.path.join(tmp, "results"), "--how_many", str(CLI_TEST_FRAMES),
+        "--seq_path", os.path.join(data, "test_images", "0001/"),
+        "--ref_img_path", os.path.join(data, "test_images", "0002/"), "--adaptive_conv"])
+    res["test_seconds"] = time.perf_counter() - t0
+    res["test_frame_ms"] = [1e3 * t for t in web.frame_seconds]
+    images = os.listdir(os.path.join(web.web_dir, "images"))
+    res["test_images"] = sum("synthesized" in i for i in images)
+    emit(res)
+    if res["test_images"] != CLI_TEST_FRAMES or web.nonfinite_frames:
+        raise AssertionError(f"adaptive cli test: {res['test_images']} frames, "
+                             f"non-finite {web.nonfinite_frames}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_slice_adaptive_conv(torch):
+    """slice_k8_512's model with adaptive_conv: `phase_slice_variant`, the
+    generated conv weights made again in each frame's forward, after B1;
+    with their bytes per frame in each dtype."""
+    def describe(cfg, g):
+        ref_labels, ref_images = seeded_inputs(torch, cfg, 8, 1, seed=1)[1:]
+        label = ref_labels[:, 0].movedim(-1, 1)
+        refs = (ref_images.movedim(-1, 2), ref_labels.movedim(-1, 2))
+        nbytes = {}
+        for dtype in ("bfloat16", "float32"):
+            with torch.inference_mode(), torch.autocast(
+                    "cuda", torch.bfloat16, enabled=dtype == "bfloat16"):
+                gen = g.eval().weight_generation(*refs, label)[1]
+            nbytes[dtype] = sum(t.numel() * t.element_size() for level in gen["conv_weights"]
+                                for pair in level for t in pair)
+        return {"adaptive_conv": cfg.adaptive_conv,
+                "fc_conv_params": sum(p.numel() for n, p in g.named_parameters()
+                                      if n.startswith("fc_conv_")),
+                "generated_conv_weight_bytes_per_frame": nbytes}
+    return phase_slice_variant(torch, "slice_k8_512_adaptive_conv", "adaptive_conv",
+                               lambda cfg: cfg.replace(adaptive_conv=True), describe)
+
+
+def phase_small_adaptive(torch, tmp):
+    """A small face model at K = 2 with both features (adaptive_conv, the
+    adaptive D at num_D 2 and adaptive_D_layers 2): its first temporal f32
+    step, teacher included, on the card against the CPU from one seed
+    (`small_step_card_vs_cpu`; B1 launched no time); then the serving
+    export of such a model at K = 1 and K = 2 in f32, the saved programs'
+    frames against InferencePipeline's on the card, with B1's launches
+    (its f32 route at K = 2, once per frame) counted in the programs."""
+    import os
+    from fsvid2vid_tpu_torch.config import face_config
+    from fsvid2vid_tpu_torch.inference.pipeline import InferencePipeline
+    from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    small = dict(ngf=8, nff=8, ndf=8, fine_size=64, load_size=64, n_blocks_F=2,
+                 n_downsample_G=3, n_adaptive_layers=2, adaptive_conv=True, n_shot=2)
+    cfg = face_config(**small, batch_size=2, niter_single=0, compute_dtype="float32",
+                      netD_subarch="adaptive", num_D=2, adaptive_D_layers=2)
+    zero_b1(ak)
+    zero_counts(cv)
+    losses, conf, rel, updated = small_step_card_vs_cpu(
+        torch, cfg, train_data(torch, cfg, 2, 2, 37, device="cpu", n_refs=2),
+        lambda models: sharpen_attention(torch, cfg, models.netG))
+    res = {"phase": "small_adaptive", "n_shot": cfg.n_shot, "size": [cfg.height, cfg.width],
+           "losses_cuda": losses["cuda"], "losses_cpu": losses["cpu"], "conf_mean": conf,
+           "max_rel_err": max(rel.values()), "tol": SMALL_ADAPTIVE_RTOL,
+           "updated_params_rel_err": updated, "b1_launches_step": b1_launches(ak),
+           "b2_launches": check_counts(cv, "small adaptive step", 2), "serve": {}}
+    step_ok = (max(rel.values()) <= SMALL_ADAPTIVE_RTOL and updated["same_reference"]
+               and max(updated["gradient"][k] for k in ("G", "D")) <= SMALL_ADAPTIVE_RTOL
+               and not any(res["b1_launches_step"].values()))
+    serve_ok = True
+    for k in (1, 2):
+        c = face_config(**dict(small, n_shot=k), batch_size=1, is_train=False,
+                        init_variance=1.0)
+        g = build(torch, c, seed=5)
+        labels, ref_labels, ref_images = seeded_inputs(torch, c, k, 3, seed=2)
+        want = run_frames(torch, InferencePipeline(c, g), labels, ref_labels, ref_images)[0]
+        session, info = export_and_load(torch, c, g, os.path.join(tmp, f"serve_adaptive_k{k}"),
+                                        torch.float32)
+        zero_b1(ak)
+        frames, ms = session_frames(torch, session, labels, ref_labels, ref_images)
+        launches = b1_launches(ak)
+        err = (frames - want).abs().max().item()
+        span = (want.max() - want.min()).item()
+        res["serve"][f"k{k}"] = dict(info, frame_ms=ms, max_abs_err=err, frame_range=span,
+                                     tol=SERVE_K1_TOL, b1_launches=launches)
+        expected = {"sm90": 0, "sm90_f32": len(labels) if k > 1 else 0, "cuda_core": 0}
+        serve_ok = serve_ok and err <= SERVE_K1_TOL * span and launches == expected
+        del session, g
+    emit(res)
+    if not (step_ok and serve_ok):
+        raise AssertionError(f"small adaptive: {res}")
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2362,6 +2722,11 @@ def phase_finetune_k8(torch, tmp):
             d_params_moved={k: [sum(int(not torch.equal(p, q)) for p, q in zip(
                 net.parameters(), before_D[k])), len(before_D[k])]
                 for k, net in nets_D.items()},
+            # the adaptive D's kernel generators: [moved, of]
+            d_adaptive_moved=[sum(int(not torch.equal(p, q)) for (n, p), q in zip(
+                nets_D["D"].named_parameters(), before_D["D"]) if ".encoder_" in n or ".fc_" in n),
+                sum(1 for n, _ in nets_D["D"].named_parameters()
+                    if ".encoder_" in n or ".fc_" in n)],
             losses_first={k: v.item() for k, v in out[1][0].items()},
             losses_last={k: v.item() for k, v in out[1][-1].items()},
             compute_dtype=cfg.compute_dtype, n_shot=cfg.n_shot, size=cfg.fine_size)
@@ -2843,6 +3208,12 @@ def main() -> int:
         serve_res = phase_serve_export_k8(torch, serve_tmp)
         phase_serve_export_k1(torch, serve_tmp)
         small_serve_res = phase_small_serve_k3(torch, serve_tmp)
+    ad_slice_res = phase_slice_adaptive_conv(torch)
+    with tempfile.TemporaryDirectory(prefix="fsv_adaptive_") as ad_tmp:
+        ad_res = phase_cli_adaptive(torch, ad_tmp)
+        ad_ft_res = phase_finetune_pose(torch, ad_tmp, "face_adaptive", ["--adaptive_conv"],
+                                        "finetune_face_adaptive")
+        small_ad_res = phase_small_adaptive(torch, ad_tmp)
     bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
     c36 = kern["ragged_c36", "float32"]
     routes = slice_res["launches_by_route"]
@@ -2876,11 +3247,17 @@ def main() -> int:
                 "finetune_face_512_k8": ft8_res["b1_launches_frames"]["sm90"],
                 "serve_export_k8_512": serve_res["runs"]["random"]["launches_by_route"]["sm90"],
                 "serve_export_k8_512_matched":
-                    serve_res["runs"]["matched"]["launches_by_route"]["sm90"]}
+                    serve_res["runs"]["matched"]["launches_by_route"]["sm90"],
+                "slice_k8_512_adaptive_conv":
+                    ad_slice_res["launches_by_dtype"]["bfloat16"]["sm90"]}
     b1_f32_paths = {"slice_k8_512": routes["sm90_f32"],
                     "slice_k8_512_kld_concat":
                         kld_res["launches_by_dtype"]["float32"]["sm90_f32"],
-                    "small_serve_k3": small_serve_res["b1_launches"]["sm90_f32"]}
+                    "small_serve_k3": small_serve_res["b1_launches"]["sm90_f32"],
+                    "slice_k8_512_adaptive_conv":
+                        ad_slice_res["launches_by_dtype"]["float32"]["sm90_f32"],
+                    "small_adaptive_serve_k2":
+                        small_ad_res["serve"]["k2"]["b1_launches"]["sm90_f32"]}
     emit({"kernels": [{
         "name": "flash_ref_attention_sm90", **b1,
         "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
@@ -2913,7 +3290,12 @@ def main() -> int:
                              "small_k3_train": k3_res["b2_launches"]["tc"],
                              "cli_train_face_256_k8": k8_res["launches_train"]["tc"],
                              "k8_profiled_sequence":
-                                 k8_res["launches_profiled_sequence"]["tc"]},
+                                 k8_res["launches_profiled_sequence"]["tc"],
+                             "cli_train_face_256_adaptive": ad_res["launches_train"]["tc"],
+                             "cli_adaptive_resume": ad_res["resume"]["launches"]["tc"],
+                             "adaptive_turns": ad_res["launches_turns"]["tc"],
+                             "finetune_face_adaptive": ad_ft_res["b2_launches"]["tc"],
+                             "small_adaptive": small_ad_res["b2_launches"]["tc"]},
         **{f"{case}_shape": {k: cv_res[case, "float32"][k] for k in cv_keys + (
             "shape", "bound_share", "previous_design_ms")} for case in ("pose", "street")},
         **{k: cv_main[k] for k in cv_keys},

@@ -12,7 +12,9 @@ It takes the train CLI's flags and these: --results_dir, --how_many,
 --seq_path, --ref_img_path, --ref_img_id (the reference frames' indices,
 comma-separated, at least --n_shot of them), --which_epoch, --finetune
 (adapt the restored G and discriminators to the first sample's references
-for finetune_iters steps before the first frame).  At --n_shot K > 1 each
+for finetune_iters steps before the first frame; the discriminator's
+--netD_subarch and adaptive_D_layers come from the run's config.json unless
+--netD_subarch is given).  At --n_shot K > 1 each
 frame runs the attention once: on the card kernel B1, after a finetune too
 (the finetune itself runs the generator's differentiable train-mode path).
 With --refine_face (pose, --n_shot 1) the face generator is restored with G
@@ -63,6 +65,14 @@ def main(argv=None) -> InferenceRun:
     parser = build_test_parser()
     args = parser.parse_args(argv)
     cfg = config_from_args(parser, args, is_train=False)
+    saved = os.path.join(cfg.checkpoints_dir, cfg.name, "config.json")
+    if cfg.finetune and args.netD_subarch is None and os.path.isfile(saved):
+        # the discriminator exists in training and finetune only: its
+        # architecture comes from the run's config.json unless given
+        from fsvid2vid_tpu_torch.config import Config
+        run_cfg = Config.load(saved)
+        cfg = cfg.replace(netD_subarch=run_cfg.netD_subarch,
+                          adaptive_D_layers=run_cfg.adaptive_D_layers)
     n_refs = len(str(cfg.ref_img_id).split(","))
     if n_refs < cfg.n_shot:
         parser.error(f"--n_shot {cfg.n_shot} needs as many reference frames; "

@@ -34,7 +34,6 @@ UNPORTED_FLAGS = {
     "coordinator_address": "A.12 (data parallel)",
     "num_processes": "A.12 (data parallel)",
     "process_id": "A.12 (data parallel)",
-    "adaptive_conv": "A.2 (generated main-branch conv weights)",
 }
 # flags that main() consumes itself and that name no config field
 RUN_FLAGS = {"faithful", "tf_log", "steps_per_epoch", "flownet_ckpt", "vgg_ckpt",
@@ -69,7 +68,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--add_raw_output_loss", action="store_true")
     p.add_argument("--n_shot", type=int, default=None)
     p.add_argument("--num_D", type=int, default=None)
-    p.add_argument("--netD_subarch", type=str, default=None)
+    p.add_argument("--netD_subarch", type=str, default=None, choices=("n_layers", "adaptive"),
+                   help="'adaptive': D generates its first adaptive_D_layers kernels "
+                        "from the reference")
     # pose flags
     p.add_argument("--remove_face_labels", action="store_true")
     p.add_argument("--add_face_D", action="store_true")

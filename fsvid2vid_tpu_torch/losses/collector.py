@@ -8,8 +8,9 @@ discriminator on face crops (`add_face_D`), and the body-part warp and mask
 terms; they need the raw (not `use_valid_labels`) pose labels, from which
 the foreground, part and face masks and the face boxes derive.
 
-The adaptive discriminator and the KLD loss are not ported: building their
-networks raises (models/discriminator.py, models/generator.py).
+The main discriminator D sees the reference concatenated to its input
+(`concat_ref_for_D`), or, when it is the adaptive discriminator, as a
+second input from which it generates its first kernels.
 """
 from __future__ import annotations
 
@@ -51,16 +52,19 @@ def divide_pred(pred):
 def discriminate(cfg: Config, apply_D: Callable, tgt_label, fake_image,
                  tgt_image, ref_image, for_discriminator: bool):
     """Run D once on fake and real concatenated on the batch axis (reference
-    loss_collector.py:47-68).  Returns [D_real, D_fake] or
-    [G_GAN, G_GAN_Feat]."""
+    loss_collector.py:47-68); the reference, where there is one, is
+    concatenated on the channels with concat_ref_for_D, else passed to D as
+    `apply_D(x, ref)`.  Returns [D_real, D_fake] or [G_GAN, G_GAN_Feat]."""
     tgt_concat = torch.cat([fake_image, tgt_image], 0)
     if tgt_label is not None:
         tgt_concat = torch.cat([torch.cat([tgt_label, tgt_label], 0), tgt_concat], 1)
-    if ref_image is not None:
-        if not cfg.concat_ref_for_D:
-            raise NotImplementedError("the adaptive discriminator is not ported")
-        tgt_concat = torch.cat([torch.cat([ref_image, ref_image], 0), tgt_concat], 1)
-    pred_fake, pred_real = divide_pred(apply_D(tgt_concat))
+    if ref_image is None:
+        out = apply_D(tgt_concat)
+    elif cfg.concat_ref_for_D:
+        out = apply_D(torch.cat([torch.cat([ref_image, ref_image], 0), tgt_concat], 1))
+    else:
+        out = apply_D(tgt_concat, torch.cat([ref_image, ref_image], 0))
+    pred_fake, pred_real = divide_pred(out)
     if for_discriminator:
         return [gan_loss(pred_real, True, cfg.gan_mode, True),
                 gan_loss(pred_fake, False, cfg.gan_mode, True)]

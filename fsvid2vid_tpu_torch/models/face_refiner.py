@@ -36,16 +36,25 @@ def face_refiner_config(cfg: Config) -> Config:
 
 
 def check_refine_face(cfg: Config) -> None:
-    """Face refinement runs at n_shot 1 only: the JAX package's refiner
-    keeps n_shot in its config but is handed one reference, so it fails
-    there at n_shot > 1 (ROADMAP.md C), and the port does not add what the
-    JAX package lacks."""
-    if cfg.refine_face and cfg.n_shot > 1:
+    """Face refinement runs at n_shot 1 and without adaptive_conv only, as
+    far as the JAX package runs it, and the port does not add what the JAX
+    package lacks (ROADMAP.md C): its refiner keeps n_shot in its config but
+    is handed one reference, and it keeps adaptive_conv, whose blocks
+    `forward_face` hands no conv weights."""
+    if not cfg.refine_face:
+        return
+    if cfg.n_shot > 1:
         raise NotImplementedError(
             f"refine_face at n_shot {cfg.n_shot}: the JAX package's face refiner runs "
             "at n_shot 1 only (face_refiner_config keeps n_shot, refine_face_region "
             "passes one reference; its init fails with TypeError: cannot reshape "
             "array; ROADMAP.md C)")
+    if cfg.adaptive_conv:
+        raise NotImplementedError(
+            "refine_face with adaptive_conv: the JAX package's face refiner fails "
+            "there (face_refiner_config keeps adaptive_conv, forward_face passes None "
+            "conv weights to its conv_params_free blocks; its init fails with "
+            "TypeError: 'NoneType' object is not subscriptable; ROADMAP.md C)")
 
 
 def get_face_boxes(cfg: Config, pose: torch.Tensor,

@@ -37,7 +37,13 @@ by a transpose.
 for_face=True)`): no flow branches, no SPADE-combine maps, no VAE layers, so
 that it holds exactly the layers the JAX init of `forward_face` creates.
 
-Not ported: adaptive_conv.  It raises.
+`adaptive_conv` generates the main-branch conv weights of the first
+n_adaptive up blocks as well (`_get_conv_weights`, the `fc_conv_{0,1,s}_<i>`
+stacks, fed the encoded reference one level below the SPADE weights'):
+those blocks own no conv_0 / conv_1 / conv_s.  The shapes are the JAX
+package's self-consistent ones, not the reference's.  The face refiner
+with adaptive_conv fails in the JAX package and is refused
+(models/face_refiner.py `check_refine_face`).
 """
 from __future__ import annotations
 
@@ -45,7 +51,6 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.models.embedder import LabelEmbedder, channel_schedule
@@ -54,7 +59,7 @@ from fsvid2vid_tpu_torch.models.layers import (
     SNLinear, SpadeConv2d, SpadeResnetBlock)
 from fsvid2vid_tpu_torch.models.remat import remat
 from fsvid2vid_tpu_torch.ops.attention_kernel import chunked_ref_attention, flash_ref_attention
-from fsvid2vid_tpu_torch.ops.image_ops import leaky_relu, upsample_nearest
+from fsvid2vid_tpu_torch.ops.image_ops import adaptive_avg_pool, leaky_relu, upsample_nearest
 from fsvid2vid_tpu_torch.ops.warp import flow_warp
 
 
@@ -76,8 +81,6 @@ FC_POOL = (32, 32)
 class FewShotGenerator(nn.Module):
     def __init__(self, cfg: Config, for_face: bool = False):
         super().__init__()
-        if cfg.adaptive_conv:
-            raise NotImplementedError("adaptive_conv is not ported")
         if cfg.use_label_ref not in ("mul", "concat"):
             raise NotImplementedError(
                 f"use_label_ref={cfg.use_label_ref!r}: the port takes 'mul' or "
@@ -96,6 +99,7 @@ class FewShotGenerator(nn.Module):
         self.nd = nd
         self.ch = ch = channel_schedule(cfg.ngf, nd + 1, min(1024, cfg.ngf * 2 ** nd))
         self.adap_spade = cfg.adaptive_spade
+        self.adap_conv = cfg.adaptive_conv
         self.adap_embed = cfg.adap_embed
         self.n_adaptive = cfg.n_adaptive
         self.warp_ref = cfg.warp_ref and not for_face
@@ -128,19 +132,29 @@ class FewShotGenerator(nn.Module):
 
         # --- weight-generation fc stacks (reference generator.py:79-110);
         # 'mul' feeds them rows of the image-label outer product, 'concat'
-        # each channel of the feature map pooled to FC_POOL ---
-        if self.adap_spade:
-            sks2, eks2 = cfg.spade_ks ** 2, cfg.embed_ks ** 2
+        # each channel of the feature map pooled to FC_POOL.  The SPADE
+        # stacks of level i read encoded level i + 1, the conv stacks level i ---
+        if self.adap_spade or self.adap_conv:
+            sks2, eks2, cks2 = cfg.spade_ks ** 2, cfg.embed_ks ** 2, cfg.conv_ks ** 2
+            pooled = FC_POOL[0] * FC_POOL[1]
             for i in range(self.n_adaptive):
                 ch_in, ch_out = ch[i], ch[i + 1]
                 ch_h = self.hidden_ncs(i)[0]
-                fc_in = ch[min(nd, i + 1)] if self.mul_label_ref else FC_POOL[0] * FC_POOL[1]
-                outs = [("fc_spade_0", (ch_h * sks2 + 1) * 2),
-                        ("fc_spade_1", (ch_h * sks2 + 1) * (1 if ch_in != ch_out else 2)),
-                        ("fc_spade_s", (ch_h * sks2 + 1) * 2)]
-                if self.adap_embed:
-                    outs.append(("fc_spade_e", ch_in * eks2 + 1))
-                for name, fc_out in outs:
+                outs = []
+                if self.adap_spade:
+                    fc_in = ch[min(nd, i + 1)] if self.mul_label_ref else pooled
+                    outs += [("fc_spade_0", fc_in, (ch_h * sks2 + 1) * 2),
+                             ("fc_spade_1", fc_in,
+                              (ch_h * sks2 + 1) * (1 if ch_in != ch_out else 2)),
+                             ("fc_spade_s", fc_in, (ch_h * sks2 + 1) * 2)]
+                    if self.adap_embed:
+                        outs.append(("fc_spade_e", fc_in, ch_in * eks2 + 1))
+                if self.adap_conv:
+                    fc_in = ch[min(nd, i)] if self.mul_label_ref else pooled
+                    outs += [("fc_conv_0", fc_in, ch_out * cks2 + 1),
+                             ("fc_conv_1", fc_in, ch_in * cks2 + 1),
+                             ("fc_conv_s", fc_in, ch_out + 1)]
+                for name, fc_in, fc_out in outs:
                     layers = [SNLinear(fc_in, ch_out)]
                     for _ in range(1, cfg.n_fc_layers):
                         layers += [nn.LeakyReLU(0.2), SNLinear(ch_out, ch_out)]
@@ -155,6 +169,7 @@ class FewShotGenerator(nn.Module):
             setattr(self, f"up_{i}", SpadeResnetBlock(
                 ch[i + 1], ch[i], norm=norm, hidden_ncs=self.hidden_ncs(i),
                 conv_ks=cfg.conv_ks, spade_ks=cfg.spade_ks,
+                conv_params_free=self.adap_conv and i < self.n_adaptive,
                 norm_params_free=self.adap_spade and i < self.n_adaptive))
         self.conv_img = nn.Conv2d(ch[0], 3, 3, padding=1)
 
@@ -324,7 +339,7 @@ class FewShotGenerator(nn.Module):
         adaptive average pool buckets it).  Returns the flat
         (B, C * fc_out) of the reference's fc(x).view(b, -1)."""
         if not self.mul_label_ref:
-            feat = F.adaptive_avg_pool2d(feat, FC_POOL).flatten(2)
+            feat = adaptive_avg_pool(feat, FC_POOL).flatten(2)
         b, rows, c = feat.shape
         return getattr(self, f"{name}_{i}")(feat.reshape(b * rows, c)).reshape(b, -1)
 
@@ -367,29 +382,43 @@ class FewShotGenerator(nn.Module):
         b = flat.shape[0]
         return flat[:, :-cout].reshape(b, cout, cin, k, k), flat[:, -cout:]
 
+    def _get_conv_weights(self, feat, i):
+        """Generated main-branch conv weights of up block i (reference
+        generator.py:276-289, with the JAX package's self-consistent shapes:
+        conv_0 fin -> fhidden, conv_1 fhidden -> fout, conv_s 1 x 1).  Block
+        i maps ch[i + 1] to ch[i], so with the encoder's names ch_in =
+        ch[i], ch_out = ch[i + 1] each weight is (B, ch_in, Cin, k, k) with
+        a bias (B, ch_in) cut from the end of its flat fc output."""
+        ch_in, ch_out, k = self.ch[i], self.ch[i + 1], self.cfg.conv_ks
+        return [self._flat_to_conv_sized(self._run_fc("fc_conv_0", i, feat), ch_in, ch_out, k),
+                self._flat_to_conv_sized(self._run_fc("fc_conv_1", i, feat), ch_in, ch_in, k),
+                self._flat_to_conv_sized(self._run_fc("fc_conv_s", i, feat), ch_in, ch_out, 1)]
+
     # ------------------------------------------------------------------
     # weight generation (reference generator.py:396-422)
     # ------------------------------------------------------------------
     def weight_generation(self, img_refs, label_refs, label, prefix=None,
                           img_coarse=None, vae_eps=None):
         """img_refs / label_refs: (B, K, C, H, W).  Returns (x, gen) with gen =
-        dict(embedding_weights, norm_weights, atn, atn_vis, ref_idx, mu,
-        logvar); x is the bottleneck after `_compute_kld`."""
+        dict(embedding_weights, norm_weights, conv_weights, atn, atn_vis,
+        ref_idx, mu, logvar); x is the bottleneck after `_compute_kld`."""
         img_flat = img_refs.flatten(0, 1)
         label_flat = label_refs.flatten(0, 1)
         x, encoded_ref, atn, atn_vis, ref_idx = self._reference_encoding(
             img_flat, label_flat, label, prefix=prefix)
         x, mu, logvar = self._compute_kld(x, label, img_coarse, vae_eps)
-        embedding_weights, norm_weights = [], []
-        if self.adap_spade:
-            for i in range(self.n_adaptive):
-                ew, nw = self._get_spade_weights(
-                    encoded_ref[min(len(encoded_ref) - 1, i + 1)], i)
+        embedding_weights, norm_weights, conv_weights = [], [], []
+        last = len(encoded_ref) - 1
+        for i in range(self.n_adaptive):
+            if self.adap_spade:
+                ew, nw = self._get_spade_weights(encoded_ref[min(last, i + 1)], i)
                 embedding_weights.append(ew)
                 norm_weights.append(nw)
+            if self.adap_conv:
+                conv_weights.append(self._get_conv_weights(encoded_ref[min(last, i)], i))
         return x, dict(embedding_weights=embedding_weights,
-                       norm_weights=norm_weights, atn=atn, atn_vis=atn_vis,
-                       ref_idx=ref_idx, mu=mu, logvar=logvar)
+                       norm_weights=norm_weights, conv_weights=conv_weights, atn=atn,
+                       atn_vis=atn_vis, ref_idx=ref_idx, mu=mu, logvar=logvar)
 
     # ------------------------------------------------------------------
     # VAE bottleneck (reference generator.py:319-338)
@@ -493,14 +522,15 @@ class FewShotGenerator(nn.Module):
         x_raw = None
         for i in range(self.nd, -1, -1):
             nw = gen["norm_weights"][i] if self.adap_spade and i < self.n_adaptive else None
+            cw = gen["conv_weights"][i] if self.adap_conv and i < self.n_adaptive else None
             block = getattr(self, f"up_{i}")
             if add_raw and i < cfg.n_sc_layers:
                 if i == cfg.n_sc_layers - 1:
                     x_raw = x
-                x_raw = self._call(block, x_raw, raw_label[i], nw)
+                x_raw = self._call(block, x_raw, raw_label[i], nw, cw)
                 if i > 0:
                     x_raw = upsample_nearest(x_raw)
-            x = self._call(block, x, encoded_label[i], nw)
+            x = self._call(block, x, encoded_label[i], nw, cw)
             if i > 0:
                 x = upsample_nearest(x)
         img = torch.tanh(self.conv_img(leaky_relu(x)))
@@ -576,12 +606,14 @@ class FewShotGenerator(nn.Module):
         return torch.tanh(self.conv_img(leaky_relu(x)))
 
     def encode_reference(self, label_refs, img_refs, label) -> Dict:
-        """K = 1 serving cache: the bottleneck and the generated weights,
-        which do not depend on the current label when K = 1."""
+        """K = 1 serving cache: the bottleneck and the generated weights
+        (SPADE, embedding and, with adaptive_conv, per level the three conv
+        (weight, bias) pairs), which do not depend on the current label
+        when K = 1."""
         self._check_eval()
         x, gen = self.weight_generation(img_refs, label_refs, label)
         return dict(x_kld=x, embedding_weights=gen["embedding_weights"],
-                    norm_weights=gen["norm_weights"])
+                    norm_weights=gen["norm_weights"], conv_weights=gen["conv_weights"])
 
     def encode_reference_multi(self, label_refs, img_refs) -> Dict:
         """K > 1 serving cache: the label-independent encoder prefix and the
@@ -596,7 +628,8 @@ class FewShotGenerator(nn.Module):
         self._check_eval()
         cfg = self.cfg
         gen = dict(embedding_weights=cache["embedding_weights"],
-                   norm_weights=cache["norm_weights"], ref_idx=None)
+                   norm_weights=cache["norm_weights"],
+                   conv_weights=cache["conv_weights"], ref_idx=None)
         img_final, img_raw, flow, flow_mask, img_warp = self._synthesize_from(
             cache["x_kld"], gen, label, label_refs, img_refs, prev_label,
             prev_img, warp_prev)

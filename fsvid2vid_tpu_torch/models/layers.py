@@ -140,12 +140,12 @@ class SyncBatchNorm(nn.Module):
 
 
 class InstanceNorm(nn.Module):
-    """InstanceNorm2d with the reference's eps = 0.1."""
+    """InstanceNorm2d with the reference's eps = 0.1 unless told otherwise
+    (the adaptive discriminator's takes torch's 1e-5)."""
 
-    eps = 0.1
-
-    def __init__(self, features: int, affine: bool = True):
+    def __init__(self, features: int, affine: bool = True, eps: float = 0.1):
         super().__init__()
+        self.eps = eps
         if affine:
             self.weight = nn.Parameter(torch.empty(features))
             self.bias = nn.Parameter(torch.empty(features))
@@ -235,8 +235,10 @@ class SpadeConv2d(nn.Module):
 
 class SpadeResnetBlock(nn.Module):
     """Two-conv residual block with SPADE (or plain) norms
-    (reference architecture.py:71-108).  Generated per-sample conv weights
-    (`conv_params_free`) are not on the serving path and are not ported."""
+    (reference architecture.py:71-108).  With `conv_params_free` (the
+    generator's adaptive_conv levels) the block owns no conv_0 / conv_1 /
+    conv_s: each conv runs the per-sample (weight, bias) pair generated for
+    it through batch_conv, conv_s with its bias too, as the JAX block does."""
 
     def __init__(self, fin: int, fout: int, norm: str = "batch",
                  hidden_ncs: Sequence[int] = (0,), conv_ks: int = 3,
@@ -244,13 +246,10 @@ class SpadeResnetBlock(nn.Module):
                  conv_params_free: bool = False,
                  norm_params_free: bool = False):
         super().__init__()
-        if conv_params_free:
-            raise NotImplementedError(
-                "generated main-branch conv weights (adaptive_conv) are not "
-                "ported")
         fhidden = min(fin, fout)
         self.learned_shortcut = fin != fout
         self.stride = stride
+        self.conv_params_free = conv_params_free
         use_spade = "spade" in norm
         use_sn = "spectral" in norm
 
@@ -260,12 +259,14 @@ class SpadeResnetBlock(nn.Module):
                              params_free=norm_params_free)
             return make_plain_norm(norm, features)
 
-        self.conv_0 = SNConv(fin, fhidden, conv_ks, stride, use_sn=use_sn)
-        self.conv_1 = SNConv(fhidden, fout, conv_ks, use_sn=use_sn)
+        if not conv_params_free:
+            self.conv_0 = SNConv(fin, fhidden, conv_ks, stride, use_sn=use_sn)
+            self.conv_1 = SNConv(fhidden, fout, conv_ks, use_sn=use_sn)
         self.bn_0 = make_norm(fin)
         self.bn_1 = make_norm(fhidden)
         if self.learned_shortcut:
-            self.conv_s = SNConv(fin, fout, 1, stride, bias=False, use_sn=use_sn)
+            if not conv_params_free:
+                self.conv_s = SNConv(fin, fout, 1, stride, bias=False, use_sn=use_sn)
             self.bn_s = make_norm(fin)
         self.use_spade = use_spade
 
@@ -274,14 +275,27 @@ class SpadeResnetBlock(nn.Module):
             return h
         return bn(h, label, weights=w) if self.use_spade else bn(h)
 
-    def forward(self, x, label=None, norm_weights=None):
+    def _conv(self, name, h, w, stride=1):
+        if self.conv_params_free:
+            return batch_conv(h, w[0], w[1], stride=stride)
+        return getattr(self, name)(h)
+
+    def forward(self, x, label=None, norm_weights=None, conv_weights=None):
+        """conv_weights: with conv_params_free, the generated [conv_0,
+        conv_1, conv_s] pairs of (weight (B, Cout, Cin, k, k), bias (B, Cout))."""
         nw = norm_weights if norm_weights is not None else [None] * 3
+        cw = conv_weights if conv_weights is not None else [None] * 3
+        if self.conv_params_free and conv_weights is None:
+            raise ValueError("a conv_params_free block needs its generated conv_weights")
         if self.learned_shortcut:
-            x_s = self.conv_s(self._norm(self.bn_s, x, label, nw[2]))
+            x_s = self._conv("conv_s", self._norm(self.bn_s, x, label, nw[2]), cw[2],
+                             self.stride)
         elif self.stride != 1:
             x_s = avg_pool(x, 3, 2, 1)
         else:
             x_s = x
-        dx = self.conv_0(leaky_relu(self._norm(self.bn_0, x, label, nw[0])))
-        dx = self.conv_1(leaky_relu(self._norm(self.bn_1, dx, label, nw[1])))
+        dx = self._conv("conv_0", leaky_relu(self._norm(self.bn_0, x, label, nw[0])),
+                        cw[0], self.stride)
+        dx = self._conv("conv_1", leaky_relu(self._norm(self.bn_1, dx, label, nw[1])),
+                        cw[1])
         return x_s + dx

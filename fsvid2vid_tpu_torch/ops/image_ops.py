@@ -32,6 +32,15 @@ def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int,
                         count_include_pad=count_include_pad)
 
 
+def adaptive_avg_pool(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """AdaptiveAvgPool2d of (B, C, H, W) to out_hw = (oh, ow): each output
+    cell is the mean over torch's buckets [floor(i H / oh), ceil((i + 1) H /
+    oh)) of rows and likewise of columns, which overlap where a size does not
+    divide and where the map is smaller than the output (JAX
+    `adaptive_avg_pool`)."""
+    return F.adaptive_avg_pool2d(x, tuple(out_hw))
+
+
 def max_pool(x: torch.Tensor, window: int, stride: int, padding: int) -> torch.Tensor:
     """Max pool with -inf padding (torch MaxPool2d semantics)."""
     return F.max_pool2d(x, window, stride, padding)

@@ -4,7 +4,8 @@ reference models/models.py create_model + base_model.define_networks).
 Every network training can need is built up front: the generator (with its
 temporal flow branch), with refine_face the face generator netGf (at
 n_shot 1 only, models/face_refiner.py `check_refine_face`), the image
-discriminator, the temporal discriminator
+discriminator (the adaptive one with netD_subarch 'adaptive', which takes the
+reference as a second input and so fewer input channels), the temporal discriminator
 when n_frames_G > 1, the face-region discriminator with add_face_D (on
 face_size x face_size crops of [reference face, face], 2 x output_nc
 channels), and the frozen VGG19 of the perceptual loss.  The train
@@ -26,7 +27,8 @@ from fsvid2vid_tpu_torch import resolve_device
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.models import (
     build_on_device, init_plain_convs, init_weights)
-from fsvid2vid_tpu_torch.models.discriminator import MultiscaleDiscriminator
+from fsvid2vid_tpu_torch.models.discriminator import (
+    MultiscaleDiscriminator, adaptive_ref_pool)
 from fsvid2vid_tpu_torch.models.face_refiner import check_refine_face, face_refiner_config
 from fsvid2vid_tpu_torch.models.generator import FewShotGenerator
 from fsvid2vid_tpu_torch.models.layers import _SpectralNormed
@@ -77,7 +79,8 @@ def build_models(cfg: Config, device=None,
         feat = not cfg.no_ganFeat_loss
         netD = make(lambda: MultiscaleDiscriminator(
             cfg.netD_input_nc, cfg.ndf, cfg.n_layers_D, cfg.norm_D,
-            cfg.netD_subarch, cfg.num_D, feat))
+            cfg.netD_subarch, cfg.num_D, feat, cfg.adaptive_D_layers,
+            adaptive_ref_pool(cfg.fine_size, cfg.aspect_ratio)))
         if cfg.n_frames_G > 1:
             # temporal D over output_nc * tD channel-stacked frames
             netDT = make(lambda: MultiscaleDiscriminator(

@@ -158,22 +158,24 @@ def generate_images(cfg: Config, models: ModelBundle, batch, prevs,
 
 def _from_start(net):
     """`net` applied as the JAX step applies a discriminator: every pass of
-    one loss computation starts from the buffers (spectral u / v) that the
-    computation began with, as each JAX apply reads the same aux_D, and the
-    buffers end one advance ahead however many passes ran (two when the raw
-    image is scored beside the final one, as on street's temporal frames)."""
+    one loss computation starts from the buffers (spectral u / v, of the
+    adaptive discriminator's fixed layers too) that the computation began
+    with, as each JAX apply reads the same aux_D, and the buffers end one
+    advance ahead however many passes ran (two when the raw image is scored
+    beside the final one, as on street's temporal frames).  The adaptive
+    discriminator takes the reference as `ref`."""
     if net is None:
         return None
     start = []
 
-    def apply(x):
+    def apply(x, ref=None):
         with torch.no_grad():
             if start:
                 for b, value in start:
                     b.copy_(value)
             else:
                 start.extend((b, b.clone()) for b in net.buffers())
-        return net(x)
+        return net(x, ref)
     return apply
 
 

@@ -142,7 +142,8 @@ def discriminator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Ten
     ({"params", "spectral"}); the image, temporal and face discriminators
     (params_D["D"], ["DT"], ["Df"]) share the naming.  flax `discriminator_K/modelN_conv` is the
     reference's `discriminator_K.modelN.0` for the first and the last layer
-    and `.modelN.0.0` for the middle ones, whose norm is `.modelN.0.1`."""
+    and `.modelN.0.0` for the middle ones, whose norm is `.modelN.0.1`; the
+    adaptive discriminator's `encoder_N` and `fc_N` keep their names."""
     sn_modules = {path[:-1] for path, _ in _leaves(variables.get("spectral", {}))}
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "spectral"):
@@ -152,6 +153,10 @@ def discriminator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Ten
                        for name in variables["params"][disc] if name.endswith("_conv"))
             for path, value in _leaves(layers):
                 module, leaf = path[0], path[-1]
+                if module.startswith(("encoder_", "fc_")):
+                    name, w = _convert(leaf, value)
+                    sd[f"{disc}.{module}.{name}"] = torch.tensor(w)
+                    continue
                 n, kind = module[len("model"):].rsplit("_", 1)
                 middle = 0 < int(n) < last
                 if kind == "norm":

@@ -100,7 +100,6 @@ def test_continue_train_resumes_in_process(data, tmp_path):
 UNPORTED = [
     (["--distributed"], "A.12"), (["--coordinator_address", "h:1"], "A.12"),
     (["--num_processes", "2"], "A.12"), (["--process_id", "1"], "A.12"),
-    (["--adaptive_conv"], "A.2"),
 ]
 
 
@@ -113,6 +112,25 @@ def test_unported_flags_exit_naming_their_item(data, tmp_path, capsys, flags, it
     assert e.value.code != 0
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
     assert not os.path.exists(os.path.join(str(tmp_path), "smoke"))
+
+
+def test_adaptive_conv_flag_trains(data, tmp_path):
+    """--adaptive_conv, refused until A.2 was ported, trains one epoch with
+    the adaptive discriminator: the first adaptive up block has no conv of
+    its own, G has the fc_conv stacks, and both moved."""
+    argv = train_argv(data, str(tmp_path), "--device", "cpu", "--niter", "1",
+                      "--adaptive_conv", "--netD_subarch", "adaptive")
+    run = cli_train.main(argv)
+    g, d = run.trainer.models.netG, run.trainer.models.netD
+    assert run.cfg.adaptive_conv and run.cfg.netD_subarch == "adaptive"
+    assert not hasattr(g.up_0, "conv_0") and hasattr(g, "fc_conv_0_0")
+    assert hasattr(d.discriminator_0, "encoder_0")
+    init = cli_train.setup(cli_train.build_arg_parser().parse_args(
+        argv + ["--name", "fresh"])).trainer.models
+    for net, fresh in ((g, init.netG), (d, init.netD)):
+        before = dict(fresh.named_parameters())
+        assert any(not torch.equal(p, before[n]) for n, p in net.named_parameters()
+                   if n.startswith(("fc_conv", "discriminator_0.fc_0")))
 
 
 # flags the port refused until the pose slice, and the config field each sets

@@ -109,9 +109,20 @@ def test_reference_discriminator_init_loads_strictly():
     assert len(out) == 1 and len(out[0]) == 6
 
 
-def test_adaptive_subarchitecture_is_not_ported():
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        MultiscaleDiscriminator(INPUT_NC, NDF, N_LAYERS, subarch="adaptive")
-    d = MultiscaleDiscriminator(INPUT_NC, NDF, N_LAYERS)
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        d(torch.zeros(1, INPUT_NC, 16, 16), ref=torch.zeros(1, INPUT_NC, 16, 16))
+def test_adaptive_subarchitecture_builds_and_takes_ref():
+    """The adaptive discriminator (tests/test_torch_adaptive_discriminator.py
+    holds it against JAX) takes the reference as its second input, and only
+    it: the n_layers one refuses a reference, the adaptive one needs it, and
+    an unknown sub-architecture is refused."""
+    d = MultiscaleDiscriminator(INPUT_NC, NDF, N_LAYERS, subarch="adaptive", num_D=2,
+                                ref_pool=(2, 2))
+    x = torch.zeros(1, INPUT_NC, 16, 16)
+    out = d.eval()(x, ref=torch.ones(1, INPUT_NC, 16, 16))
+    assert len(out) == 2 and len(out[0]) == N_LAYERS + 2 and out[0][-1].shape[1] == 1
+    assert {"encoder_0", "fc_0"} <= {n for n, _ in d.discriminator_1.named_children()}
+    with pytest.raises(ValueError, match="takes a ref"):
+        d(x)
+    with pytest.raises(ValueError, match="takes a ref"):
+        MultiscaleDiscriminator(INPUT_NC, NDF, N_LAYERS)(x, ref=x)
+    with pytest.raises(ValueError, match="netD_subarch"):
+        MultiscaleDiscriminator(INPUT_NC, NDF, N_LAYERS, subarch="other")

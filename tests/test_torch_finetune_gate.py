@@ -7,15 +7,20 @@ well); it fails one whose update was dropped and one whose generator was cut
 off from its losses (its gradient zeroed where the output saturated
 nowhere).  A small pose model, two finetune steps in f32.  With refine_face the gate reads
 the face generator netGf by the same rule
-(`generators_moved_as_their_gradients_allow`).
+(`generators_moved_as_their_gradients_allow`), and with adaptive_conv it
+reads the generated conv weights' stacks by it too: a small face model whose
+fc_conv stacks moved, or saturated with the output, holds it; one whose
+fc_conv update was dropped, or whose stacks were cut off from the losses,
+fails it.
 """
 import os
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
-from fsvid2vid_tpu_torch.config import pose_config
+from fsvid2vid_tpu_torch.config import face_config, pose_config
 from fsvid2vid_tpu_torch.inference import finetune as ft
 from fsvid2vid_tpu_torch.training.state import build_models
 
@@ -92,37 +97,163 @@ def test_finetune_gate(refs, case, holds):
 GF_RUNS = {}
 
 
-def gf_record(refs):
+def gf_record(refs, case="moved"):
     """A refine_face finetune's record, G's and netGf's, as chip_smoke.py's
-    finetune phase writes it."""
-    if "moved" not in GF_RUNS:
+    finetune phase writes it.  "clamped": G's output is +1 everywhere and
+    netGf's tanh(3) nowhere +-1, so the refined face, added to the coarse one,
+    lies above replace_face_region's clamp at every pixel and netGf gets no
+    gradient although its output never saturates.  "gf_cut_off": netGf's
+    output is detached from the frame."""
+    if case not in GF_RUNS:
         cfg = small_cfg().replace(refine_face=True)
         models = build_models(cfg, device="cpu", generator=torch.Generator().manual_seed(33))
         nets = {"g": models.netG, "gf": models.netGf}
+        extra = []
+        if case == "clamped":
+            with torch.no_grad():
+                models.netG.conv_img.bias.fill_(100.0)
+                models.netGf.conv_img.weight.zero_()
+                models.netGf.conv_img.bias.fill_(3.0)
+        if case == "gf_cut_off":
+            extra.append(models.netGf.conv_img.register_forward_hook(
+                lambda _, __, y: y.detach() + 0 * y))
         before = {k: [p.detach().clone() for p in net.parameters()] for k, net in nets.items()}
-        hooks = {k: cs.watch_output_layer(torch, net) for k, net in nets.items()}
+        hooks = {"g": cs.watch_output_layer(torch, models.netG),
+                 "gf": cs.watch_face_output(torch, models.netGf)}
         try:
             _, history = ft.finetune(cfg, models, *refs, seed=5)
         finally:
             for _, _, unhook in hooks.values():
                 unhook()
+            for h in extra:
+                h.remove()
         res = {"iters": len(history)}
         for k, net in nets.items():
             res[f"{k}_params_moved"] = sum(int(not torch.equal(p, q)) for p, q in zip(
                 net.parameters(), before[k]))
             res[f"{k}_gradients"] = cs.g_gradient_record(*hooks[k][:2], len(history))
-        GF_RUNS["moved"] = res
-    return dict(GF_RUNS["moved"])
+        GF_RUNS[case] = res
+    return dict(GF_RUNS[case])
 
 
-@pytest.mark.parametrize("case, holds", [("moved", True), ("gf_dropped_update", False)])
+@pytest.mark.parametrize("case, holds", [("moved", True), ("gf_dropped_update", False),
+                                         ("clamped", True), ("gf_cut_off", False)])
 def test_finetune_gate_holds_the_face_generator(refs, case, holds):
     """The gate of a refine_face finetune reads netGf's output layer by G's
     rule: a netGf that moved holds it, one whose update was dropped fails
-    it although G moved."""
-    res = gf_record(refs)
-    assert res["iters"] == ITERS and res["gf_gradients"]["conv_img_calls"] == ITERS
+    it although G moved; a netGf whose output the clamp of the residual
+    stops at every pixel holds it unmoved, one cut off from the frame fails
+    it."""
+    res = gf_record(refs, "moved" if case == "gf_dropped_update" else case)
+    gf = res["gf_gradients"]
+    assert res["iters"] == ITERS and gf["conv_img_calls"] == ITERS
     if case == "gf_dropped_update":
         res["gf_params_moved"] = 0
-    assert res["g_params_moved"] > 0 and cs.g_moved_as_its_gradients_allow(res)
+    if case == "clamped":
+        assert gf["saturated_steps"] == gf["zero_grad_steps"] == list(range(ITERS))
+        assert res["gf_params_moved"] == 0
+    if case == "gf_cut_off":
+        assert gf["saturated_steps"] == [] and gf["zero_grad_steps"] == list(range(ITERS))
+    if case != "clamped":
+        assert res["g_params_moved"] > 0
+    assert cs.g_moved_as_its_gradients_allow(res)
     assert cs.generators_moved_as_their_gradients_allow(res) is holds
+
+
+@pytest.mark.parametrize("case", ["free", "saturated", "clamped", "clamped_but_one",
+                                  "outside_the_paste"])
+def test_face_output_stopped_is_a_zero_gradient(case):
+    """`face_output_stopped` says a refined face passes no gradient to its
+    frame exactly when the backward through tanh, the clamp of the residual
+    and the paste gives its pre-tanh input a zero gradient."""
+    from fsvid2vid_tpu_torch.models import face_refiner
+    rng = np.random.RandomState(8)
+    cfg = small_cfg()
+    frame = torch.tensor(np.tanh(rng.randn(1, 32, 32, 3)), dtype=torch.float32)
+    boxes = torch.tensor([[4.0, 28.0, 6.0, 30.0]])
+    x = torch.tensor(rng.randn(1, 16, 16, 3), dtype=torch.float32)
+    coarse = torch.tensor(np.tanh(rng.randn(1, 16, 16, 3)), dtype=torch.float32)
+    if case == "saturated":
+        x = x.sign() * 100.0
+    if case in ("clamped", "clamped_but_one"):
+        x, coarse = x.abs() + 1.0, torch.ones_like(coarse)
+        if case == "clamped_but_one":
+            coarse[0, 7, 9, 1] = 0.0
+    if case == "outside_the_paste":
+        boxes = torch.tensor([[40.0, 64.0, 40.0, 64.0]])     # wholly outside the frame
+    x.requires_grad_()
+    face = torch.tanh(x)
+    stopped = cs.face_output_stopped(torch, face_refiner.replace_face_region, cfg, frame,
+                                     face, None, coarse, 0, boxes)
+    out = face_refiner.replace_face_region(cfg, frame, face, None, coarse, 0, boxes)
+    weights = torch.tensor(rng.rand(*out.shape) + 0.5, dtype=torch.float32)
+    grad, = torch.autograd.grad((out * weights).sum(), x)
+    assert bool(stopped) == bool((grad == 0).all())
+    assert bool(stopped) is (case not in ("free", "clamped_but_one"))
+
+
+FC_RUNS = {}
+
+
+def fc_conv_record(case):
+    """An adaptive_conv face finetune's record, with the fc_conv stacks' part
+    (`g_fc_conv`) as chip_smoke.py's finetune phase writes it."""
+    key = "moved" if case == "fc_conv_dropped_update" else case
+    if key not in FC_RUNS:
+        cfg = face_config(ngf=8, nff=8, ndf=8, fine_size=32, load_size=32, n_blocks_F=2,
+                          n_downsample_G=3, n_adaptive_layers=2, batch_size=1,
+                          adaptive_conv=True, netD_subarch="adaptive", is_train=False,
+                          finetune=True, finetune_iters=ITERS, lr=1e-4,
+                          compute_dtype="float32")
+        rng = np.random.RandomState(4)
+        refs = (rng.randn(1, 1, 32, 32, 1).astype(np.float32),
+                np.tanh(rng.randn(1, 1, 32, 32, 3)).astype(np.float32))
+        models = build_models(cfg, device="cpu", generator=torch.Generator().manual_seed(33))
+        g = models.netG
+        extra = []
+        if key == "saturated":
+            with torch.no_grad():
+                g.conv_img.bias.fill_(100.0)
+        if key == "fc_conv_cut_off":
+            extra.append(g.fc_conv_0_0.register_forward_hook(
+                lambda _, __, y: y.detach() + 0 * y))
+        before = {n: p.detach().clone() for n, p in g.named_parameters()}
+        saturated, zero_grad, unhook = cs.watch_output_layer(torch, g)
+        fc_zero_grad, fc_unhook = cs.watch_fc_conv(torch, g)
+        try:
+            _, history = ft.finetune(cfg, models, *refs, seed=5)
+        finally:
+            unhook()
+            fc_unhook()
+            for h in extra:
+                h.remove()
+        FC_RUNS[key] = {
+            "iters": len(history),
+            "g_params_moved": sum(int(not torch.equal(p, before[n]))
+                                  for n, p in g.named_parameters()),
+            "g_gradients": cs.g_gradient_record(saturated, zero_grad, len(history)),
+            "g_fc_conv": cs.fc_conv_record(torch, g, fc_zero_grad, before)}
+    res = dict(FC_RUNS[key], g_fc_conv=dict(FC_RUNS[key]["g_fc_conv"]))
+    if case == "fc_conv_dropped_update":
+        res["g_fc_conv"]["params_moved"] = 0
+    return res
+
+
+@pytest.mark.parametrize("case, holds", [
+    ("moved", True), ("saturated", True), ("fc_conv_dropped_update", False),
+    ("fc_conv_cut_off", False)])
+def test_finetune_gate_holds_the_fc_conv_stacks(case, holds):
+    res = fc_conv_record(case)
+    fc, g = res["g_fc_conv"], res["g_gradients"]
+    assert res["iters"] == ITERS and fc["grads"] == ITERS
+    if case == "moved":
+        assert fc["params_moved"] > 0 and fc["zero_grad_steps"] == g["saturated_steps"] == []
+    if case == "saturated":
+        assert fc["params_moved"] == 0 and fc["zero_grad_steps"] == list(range(ITERS))
+    if case == "fc_conv_cut_off":
+        assert g["saturated_steps"] == [] and fc["zero_grad_steps"] == list(range(ITERS))
+        assert res["g_params_moved"] > 0      # the rest of G moved
+    assert cs.watch_fc_conv(torch, build_models(
+        pose_config(ngf=4, ndf=4, fine_size=32, load_size=32, n_downsample_G=3,
+                    n_adaptive_layers=2, no_vgg_loss=True), device="cpu").netG) is None
+    assert cs.g_moved_as_its_gradients_allow(res) is holds

@@ -265,7 +265,9 @@ print(" ".join(names))
         "losses.gan", "losses.collector", "training.flow_teacher",
         "training.state", "training.step", "ops.crop", "models.face_refiner",
         "models.remat", "data.pose", "data.synthetic", "data.rasterize",
-        "data.loader")} <= names
+        "data.loader", "ops", "ops.image_ops", "ops.batch_conv", "models.layers",
+        "models.generator", "utils.convert", "inference.finetune", "cli.train",
+        "cli.test")} <= names
 
 
 def test_entry_points_run_on_cuda_unless_cpu_is_named():

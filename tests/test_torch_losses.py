@@ -255,20 +255,26 @@ def test_flow_and_mask_losses(rng, prev):
 
 
 @pytest.mark.parametrize("kw", [dict(netD_subarch="adaptive"), dict(lambda_kld=1.0)])
-def test_unported_loss_terms_raise(kw):
+def test_adaptive_D_and_kld_loss_build(kw):
     """The face D and the pose terms are ported (tests/test_torch_pose_losses.py),
-    and so is the KLD loss with the VAE it scores
-    (tests/test_torch_kld_concat.py); the adaptive discriminator is not:
-    building the networks of a face or pose training configuration that
-    asks for it raises, one that asks for the KLD loss builds with the VAE's
-    layers, and the same pose configuration without either builds."""
+    and so are the KLD loss with the VAE it scores
+    (tests/test_torch_kld_concat.py) and the adaptive discriminator
+    (tests/test_torch_adaptive_discriminator.py): a face or pose training
+    configuration that asks for the adaptive D builds it on netD_input_nc
+    channels, which no longer count the reference's (it is D's second
+    input), one that asks for the KLD loss builds with the VAE's layers, and
+    the same pose configuration without either builds."""
     tiny = dict(ngf=4, ndf=4, fine_size=32, load_size=32, n_downsample_G=3,
                 n_adaptive_layers=2, no_vgg_loss=True)
     for preset in (tconfig.face_config, tconfig.pose_config):
+        cfg = preset(**tiny, **kw)
+        models = build_models(cfg, device="cpu")
         if "lambda_kld" in kw:
-            netG = build_models(preset(**tiny, **kw), device="cpu").netG
-            assert {"fc_mu_ref", "fc_var_ref", "fc"} <= {n for n, _ in netG.named_children()}
+            assert {"fc_mu_ref", "fc_var_ref", "fc"} <= {n for n, _ in models.netG.named_children()}
             continue
-        with pytest.raises(NotImplementedError):
-            build_models(preset(**tiny, **kw), device="cpu")
+        d = models.netD.discriminator_0
+        assert not cfg.concat_ref_for_D
+        assert cfg.netD_input_nc < preset(**tiny).netD_input_nc
+        assert d.encoder_0.in_channels == d.fc_0.out_features // 16 == cfg.netD_input_nc
+        assert models.netDT.discriminator_0.model0[0].weight.shape[1] == 3 * cfg.tD
     assert build_models(tconfig.pose_config(**tiny), device="cpu").netDf is not None
