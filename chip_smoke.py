@@ -4,18 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, all at
-once (one nvcc per source): multi-reference flash attention on three routes
-(the bf16 tensor-core kernel, the f32 tensor-core kernel on split-bf16
-products, and the CUDA-core kernel that keeps c % 8 != 0) and the FlowNetC
-cost volume on two (the banded tensor-core product for stride 2, the
-CUDA-core kernel for other grids).  It holds each against its plain PyTorch
-version on the card, times each tensor-core kernel in turns against the
-CUDA-core design it replaced, and then drives the port's two main paths end
-to end at the full width of face_config:
+once (one nvcc per source): multi-reference flash attention on six
+tensor-core routes (bf16, and f32 on split-bf16 products, each for
+c % 8 == 0 up to 128 channels, for c % 8 != 0 on inputs zero-padded by a
+pre-pass, and for 128 < c <= 512 on the wide walk) beside the CUDA-core
+kernel they replaced, and the FlowNetC cost volume on two (the banded
+tensor-core product for stride 2, the CUDA-core kernel for other grids).  It
+holds each against its plain PyTorch version on the card, times each
+attention route at the shape of the path it serves in turns against the
+CUDA-core design (where that takes c) and the cost volume likewise, and
+then drives the port's two main paths end to end at the full width of
+face_config:
 
   * serving: K-shot face synthesis at 512 px with K = 8 references (the
     attention kernel once per frame: bf16 frames on the bf16 tensor-core
-    route, f32 frames on the f32 one), and the K = 1 face-256 forward;
+    route, f32 frames on the f32 one), the same model at --ngf 64, whose
+    attention has c = 256 channels (the wide routes), small models whose
+    attention has c = 36 and c = 160 on the card against the CPU, and the
+    K = 1 face-256 forward;
   * training: face 256 px at batch 4 with seeded random G, D, VGG19 and
     FlowNet2; the flow teacher (the tensor-core cost volume once per flow
     call), then single-frame and temporal steps of `train_step` and
@@ -68,8 +74,10 @@ to end at the full width of face_config:
     CPU and its saved programs at K = 1 and K = 2 against the pipeline
     (`phase_small_adaptive`).
 
-Each phase prints one JSON line; the kernels line comes before the last
-line, and the last line is
+Each phase prints one JSON line and then its seconds on a line of their
+own; the finetune phases other than finetune_pose run 25 of the
+reference's 100 iterations, to stay inside the time limit.  The kernels
+line comes before the last line, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -98,8 +106,15 @@ H100_BYTES_PER_S = 3.35e12
 # the attention at face 512 px, K = 8, n_downsample_A = 2 (B=1, hw=128^2)
 SLICE = dict(b=1, hw=128 * 128, n_refs=8, c=128, has_lf=True)
 RAGGED = dict(b=2, hw=13 * 11, n_refs=3, c=40, has_lf=False)
-# c % 8 != 0: the CUDA-core kernel's route in both dtypes
+# c % 8 != 0: the ragged routes (inputs zero-padded to a multiple of 8)
 RAGGED_C36 = dict(b=1, hw=150, n_refs=3, c=36, has_lf=True)
+# the slice's hw and K at c = 124 (ragged; comparable with the CUDA-core
+# kernel's time at the slice) and at c = 256 (the wide routes: the K = 8 /
+# 512 px model at --ngf 64), and c = 512, the widest the JAX generator sends
+# to its kernel, at a small hw
+SLICE_C124 = dict(SLICE, c=124)
+SLICE_C256 = dict(SLICE, c=256)
+WIDE_C512 = dict(b=1, hw=256, n_refs=4, c=512, has_lf=True)
 # hw_key = 40 < 64 keys per tile: every tile of the tensor-core kernel is a
 # masked reference tail
 SHORT_REFS = dict(b=1, hw=40, n_refs=5, c=64, has_lf=True)
@@ -122,20 +137,27 @@ SLICE_NOLF = dict(SLICE, has_lf=False)
 #    split of q and k into 2 bf16 parts (16 bits) errs ~10x more than the
 #    f32 kernel's 3 (24 bits): the limit lies between the two, 1.5e-4 /
 #    2.5e-5 (PERF.md §6 has the readings of both on the card);
+#  slice_c124 and slice_c256, f32: the slice's N, so its limits (energies
+#    are drawn with a std of ~4 at every c);
+#  wide_c512, f32: an energy sums 512 products of 6 split parts, 4x the
+#    ragged case's 128, and its rounding reaches the masses through the
+#    exponential: 1e-4 / 2e-5;
 #  bf16: the kernel rounds p to bf16 before the value products (as the TPU
 #    kernel does) and both round the outputs to bf16: 3e-2 / 1e-4.
-TOL = {("slice", "float32"): (5e-4, 1e-4), ("slice_nolf", "float32"): (5e-4, 1e-4),
-       ("sharp", "float32"): (1.5e-4, 2.5e-5),
+TOL = {**{(case, "float32"): (5e-4, 1e-4)
+          for case in ("slice", "slice_nolf", "slice_c124", "slice_c256")},
+       ("sharp", "float32"): (1.5e-4, 2.5e-5), ("wide_c512", "float32"): (1e-4, 2e-5),
        **{(case, "float32"): (1e-4, 1e-5)
           for case in ("ragged", "ragged_c36", "short_refs")},
        **{(case, "bfloat16"): (3e-2, 1e-4)
           for case in ("ragged", "ragged_c36", "slice", "slice_nolf", "short_refs",
-                       "sharp")}}
+                       "sharp", "slice_c124", "slice_c256", "wide_c512")}}
 ATTENTION_CASES = {"slice": SLICE, "slice_nolf": SLICE_NOLF, "ragged": RAGGED,
-                   "ragged_c36": RAGGED_C36, "short_refs": SHORT_REFS, "sharp": SHARP}
-# a tensor-core kernel timed in turns against the CUDA-core design it replaced
-TIMING_TURNS = {"bfloat16": ("sm90", "cuda_core", "cuda_core", "sm90"),
-                "float32": ("sm90_f32", "cuda_core", "cuda_core", "sm90_f32")}
+                   "ragged_c36": RAGGED_C36, "short_refs": SHORT_REFS, "sharp": SHARP,
+                   "slice_c124": SLICE_C124, "slice_c256": SLICE_C256, "wide_c512": WIDE_C512}
+# the cases timed: each route's kernel at the shape of the path it serves,
+# and the wide routes at c = 512
+TIMED_CASES = ("slice", "slice_c124", "slice_c256", "wide_c512")
 # K = 8 slice, f32 frames with the kernel vs with the plain attention: the
 # attention outputs differ by <= 5e-4 (above); through the decoder: 2e-3
 SLICE_FRAME_TOL = 2e-3
@@ -229,6 +251,22 @@ def attention_cost(b, hw, n_refs, c, has_lf, dtype_bytes):
     return flops, nbytes, unit * (6 + 3 * n_values)
 
 
+def design_flops(route, b, hw, n_refs, c, has_lf):
+    """The products a tensor-core route does (ops/attention_kernel.py): at
+    cp = c rounded up to 8 channels in whole 64-channel boxes; the narrow
+    walk QK^T once and PV over [xf | lf]; the wide walk QK^T once per slice
+    of 4 value boxes and PV over each slice's 256 channels; the f32 routes
+    6 split products for QK^T and 3 for PV."""
+    unit = 2.0 * b * hw * n_refs * hw
+    boxes = -(-(-(-c // 8) * 8) // 64)
+    values = boxes * (2 if has_lf else 1)
+    qk, pv = (6, 3) if route.endswith("_f32") else (1, 1)
+    if "wide" in route:
+        slices = -(-values // 4)
+        return unit * slices * (qk * 64 * boxes + pv * 256)
+    return unit * (qk * 64 * boxes + pv * 64 * values)
+
+
 def library_attention(torch, q, k, xf, lf, n_refs):
     """Yardstick, never called by the port: one scaled_dot_product_attention
     whose values are [xf | lf | one-hot(reference)], so one call yields
@@ -276,18 +314,22 @@ def check_kernel(torch, dtype_name, case, timed):
            "sharpness": SHARPNESS.get(case, 1.0),
            "max_abs_err_out": err_out, "tol_out": tol_out,
            "max_abs_err_vis": err_vis, "tol_vis": tol_vis, "ok": ok}
-    if timed and ok:   # in turns against the CUDA-core design it replaced
-        launch = {"sm90": ak._launch_sm90, "sm90_f32": ak._launch_sm90_f32,
-                  "cuda_core": ak._launch_cuda_core}
-        turns = [(r, cuda_ms(torch, lambda r=r: launch[r](q, k, xf, lf, n_refs), 5))
-                 for r in TIMING_TURNS[dtype_name]]
-        mean = lambda name: sum(ms for r, ms in turns if r == name) / 2
+    if timed and ok:
+        # in turns against the CUDA-core design the tensor-core routes
+        # replaced, where it takes c (<= 128); else the route alone, twice
+        c = shape["c"]
+        previous = "cuda_core" if c <= ak.NARROW_MAX_C else route
+        turns = [(r, cuda_ms(torch, lambda r=r: ak._LAUNCH[r](q, k, xf, lf, n_refs), 5))
+                 for r in (route, previous, previous, route)]
+        mean = lambda name: sum(ms for r, ms in turns if r == name) / sum(
+            1 for r, _ in turns if r == name)
         res["turns_ms"] = turns
         res["sm_clock_power_temperature"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
         res["ms"] = mean(route)
-        res["previous_design_ms"] = mean("cuda_core")
+        if previous == "cuda_core":
+            res["previous_design_ms"] = mean("cuda_core")
         res["plain_ms"] = cuda_ms(
             torch, lambda: ak.flash_ref_attention_plain(q, k, xf, lf, n_refs), 2)
         lib = library_attention(torch, q, k, xf, lf, n_refs)
@@ -297,18 +339,24 @@ def check_kernel(torch, dtype_name, case, timed):
         del out
         res["library_ms"] = cuda_ms(torch, lib, 5)
         flops, nbytes, split_flops = attention_cost(
-            shape["b"], shape["hw"], n_refs, shape["c"], shape["has_lf"], q.element_size())
-        # the bound of the operations the kernel does, at the peak for their
-        # type: bf16 products (the f32 kernel's are its split products); for
-        # f32 also the useful f32 work at the CUDA cores' f32 peak
-        ops_ms = 1e3 * (split_flops if route == "sm90_f32" else flops) / H100_BF16_FLOPS
+            shape["b"], shape["hw"], n_refs, c, shape["has_lf"], q.element_size())
+        # the bound of the useful operations at c, at the peak for their
+        # type: bf16 products (the f32 routes' are their split products);
+        # for f32 also the useful f32 work at the CUDA cores' f32 peak
+        f32 = route.endswith("_f32")
+        ops_ms = 1e3 * (split_flops if f32 else flops) / H100_BF16_FLOPS
         bytes_ms = 1e3 * nbytes / H100_BYTES_PER_S
         res.update(flop=flops, bytes=nbytes, bound_ms=max(ops_ms, bytes_ms),
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-        if route == "sm90_f32":
+        if f32:
             res.update(split_flop=split_flops,
                        f32_cuda_core_bound_ms=1e3 * flops / H100_F32_FLOPS)
+        # the products the design does: padded channels, whole boxes, and
+        # QK^T once per value slice on the wide routes
+        design = design_flops(route, shape["b"], shape["hw"], n_refs, c, shape["has_lf"])
+        res.update(design_flop=design, design_bound_ms=1e3 * design / H100_BF16_FLOPS)
         res["bound_share"] = res["bound_ms"] / res["ms"]
+        res["design_bound_share"] = res["design_bound_ms"] / res["ms"]
         res["tflops"] = flops / res["ms"] / 1e9
     emit(res)
     if not ok:
@@ -318,12 +366,18 @@ def check_kernel(torch, dtype_name, case, timed):
 
 
 def phase_kernels(torch):
-    """Every case in both dtypes; the slice timed.  The c = 36 case keeps the
-    CUDA-core kernel launched and checked."""
-    res = {(case, d): check_kernel(torch, d, case, case == "slice")
+    """Every case in both dtypes, each route's serving shape timed; c = 36
+    and the slice's c = 124 on the ragged routes, c = 256 and 512 on the
+    wide ones."""
+    res = {(case, d): check_kernel(torch, d, case, case in TIMED_CASES)
            for case in ATTENTION_CASES for d in ("bfloat16", "float32")}
-    if {r["route"] for (case, _), r in res.items() if case == "ragged_c36"} != {"cuda_core"}:
-        raise AssertionError("the c = 36 cases did not take the CUDA-core route")
+    want = {"ragged_c36": {"sm90_ragged", "sm90_ragged_f32"},
+            "slice_c124": {"sm90_ragged", "sm90_ragged_f32"},
+            "slice_c256": {"sm90_wide", "sm90_wide_f32"},
+            "wide_c512": {"sm90_wide", "sm90_wide_f32"}}
+    for case, routes in want.items():
+        if {r["route"] for (c, _), r in res.items() if c == case} != routes:
+            raise AssertionError(f"the {case} cases did not take the routes {routes}")
     torch.cuda.empty_cache()
     return res
 
@@ -595,8 +649,8 @@ def phase_slice(torch):
     if launches != 4 * N_FRAMES:
         raise AssertionError(f"kernel launches {launches} != frames {4 * N_FRAMES}")
     # each dtype's frames on its own tensor-core route only
-    want = {"bfloat16": {"sm90": 2 * N_FRAMES, "sm90_f32": 0, "cuda_core": 0},
-            "float32": {"sm90": 0, "sm90_f32": 2 * N_FRAMES, "cuda_core": 0}}
+    want = {"bfloat16": b1_want(ak, sm90=2 * N_FRAMES),
+            "float32": b1_want(ak, sm90_f32=2 * N_FRAMES)}
     if by_dtype != want:
         raise AssertionError(f"launches by dtype and route {by_dtype} != {want}")
     for dtype in ("bfloat16", "float32"):   # one warm frame with warp_prev
@@ -947,8 +1001,8 @@ def phase_small_train(torch):
 # the training and inference CLIs
 # ----------------------------------------------------------------------
 CLI_SEQS, CLI_FRAMES, CLI_IMAGE = 2, 12, 512
-CLI_STEPS = 3           # sequences per epoch
-CLI_TURN_SEQS = 12      # sequences per timing turn
+CLI_STEPS = 2           # sequences per epoch (cut from 3 to stay inside the time limit)
+CLI_TURN_SEQS = 6       # sequences per timing turn
 CLI_TURNS = ("loader", "loaded", "loaded", "loader")
 CLI_TEST_FRAMES = 8
 
@@ -1206,7 +1260,7 @@ def phase_cli(torch):
 POSE_FLAGS = ["--dataset_mode", "fewshot_pose", "--adaptive_spade", "--warp_ref",
               "--spade_combine", "--remove_face_labels", "--add_face_D", "--remat"]
 POSE_SEQS, POSE_FRAMES, POSE_SOURCE = 2, 12, (768, 512)   # source frames (H, W)
-POSE_STEPS = 3          # sequences per epoch
+POSE_STEPS = 2          # sequences per epoch (cut from 3 to stay inside the time limit)
 POSE_TEST_FRAMES = 8
 # small pose model, one temporal f32 step: the card (B2 kernel in the
 # teacher) vs the CPU (plain version), as SMALL_STEP_RTOL for face
@@ -1623,6 +1677,43 @@ def watch_face_output(torch, netGf):
     return stopped, zero_grad, remove
 
 
+def watch_refined_output(torch, netG):
+    """`watch_output_layer` for G in a refine_face finetune, whose output
+    reaches the frame only outside the face box: replace_face_region pastes
+    netGf's face over it, with G's coarse face detached (as the JAX
+    stop_gradient).  Per refinement, whether the conv_img outputs of G's
+    forward since the last one pass no gradient to the refined frame at any
+    pixel (their tanh exactly +-1 there, the paste, or anything else between
+    them and the frame), by autograd from the frame back to them; per
+    backward, whether `conv_img.weight`'s gradient is exactly 0.  Install it
+    after `watch_face_output` and remove it first: it wraps that wrapper."""
+    from fsvid2vid_tpu_torch.models import face_refiner
+    real = face_refiner.replace_face_region
+    outputs, stopped, zero_grad = [], [], []
+
+    def watched(cfg, fake_image, fake_face, input_label, fake_face_coarse=None,
+                crop_smaller=0, boxes=None):
+        frame = real(cfg, fake_image, fake_face, input_label, fake_face_coarse,
+                     crop_smaller, boxes)
+        if fake_face_coarse is not None:
+            live = [y for y in outputs if y.requires_grad]
+            reach = torch.autograd.grad(frame.float().sum(), live, retain_graph=True,
+                                        allow_unused=True) if live else []
+            stopped.append(all(bool((r == 0).all()) for r in reach if r is not None))
+            outputs.clear()
+        return frame
+
+    hooks = [netG.conv_img.register_forward_hook(lambda _, __, y: outputs.append(y)),
+             netG.conv_img.weight.register_hook(lambda g: zero_grad.append((g == 0).all()))]
+    face_refiner.replace_face_region = watched
+
+    def remove():
+        face_refiner.replace_face_region = real
+        for h in hooks:
+            h.remove()
+    return stopped, zero_grad, remove
+
+
 def face_output_stopped(torch, replace, cfg, fake_image, fake_face, input_label,
                         coarse, crop_smaller, boxes):
     """Whether no pixel of the refined face `fake_face` (netGf's tanh
@@ -1708,12 +1799,20 @@ def generators_moved_as_their_gradients_allow(res):
         "gf_gradients" not in res or g_moved_as_its_gradients_allow(gf))
 
 
-def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetune_pose"):
+# finetune iterations: the reference's 100 in finetune_pose; the other
+# finetune phases run the same code at a cut depth, inside the time limit
+FINETUNE_ITERS = 100       # vid2vid_model.py:218
+FINETUNE_ITERS_CUT = 25
+
+
+def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetune_pose",
+                        iters=FINETUNE_ITERS):
     """scripts/pose/test.sh: `cli.test --dataset_mode fewshot_pose ...
     --finetune` on the checkpoint `name` that `phase_pose_cli` (or, with
     --refine_face among `flags`, `phase_pose_refine_cli`; or, with face
-    `flags`, `phase_cli_adaptive`) left in `tmp`, with the reference's 100
-    iterations at the slice's full width, then POSE_TEST_FRAMES frames.  The
+    `flags`, `phase_cli_adaptive`) left in `tmp`, with `iters` iterations
+    (the reference's 100 unless cut) at the slice's full width, then
+    POSE_TEST_FRAMES frames.  The
     finetune is observed through its module function: the G (and netGf)
     parameters outside finetune_mask leave it bitwise as they entered, some
     inside it move (`generators_moved_as_their_gradients_allow`, which reads
@@ -1745,8 +1844,11 @@ def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetu
     def observed(cfg, models, *args, **kw):
         nets = {"g": models.netG, "gf": models.netGf}
         nets = {k: v for k, v in nets.items() if v is not None}
-        watch = {k: watched(net, watch_face_output if k == "gf" else watch_output_layer)
-                 for k, net in nets.items()}
+        # with refine_face G's output reaches the frame only outside the face
+        # box, and G's watcher wraps netGf's: netGf's first
+        watchers = {"gf": watch_face_output,
+                    "g": watch_refined_output if "gf" in nets else watch_output_layer}
+        watch = {k: watched(nets[k], watchers[k]) for k in ("gf", "g") if k in nets}
         fc_watch = watch_fc_conv(torch, models.netG)
         nets_D = {k: getattr(models, "net" + k) for k in ("D", "DT", "Df")}
         nets_D = {k: v for k, v in nets_D.items() if v is not None}
@@ -1757,9 +1859,9 @@ def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetu
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
-            out = real(cfg, models, *args, **kw)
+            out = real(cfg.replace(finetune_iters=iters), models, *args, **kw)
         finally:
-            for _, _, (_, _, unhook) in watch.values():
+            for _, _, (_, _, unhook) in reversed(list(watch.values())):
                 unhook()
             if fc_watch is not None:
                 fc_watch[1]()
@@ -1806,7 +1908,7 @@ def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetu
     emit(res)
     losses = list(res["losses_last"].values()) + list(res["losses_first"].values())
     outside = res["g_params_moved_outside_mask"] + res.get("gf_params_moved_outside_mask", [])
-    if (res["iters"] != 100 or outside
+    if (res["iters"] != iters or outside
             or not generators_moved_as_their_gradients_allow(res)
             or ("--refine_face" in flags) != ("gf_gradients" in res)
             or any(moved < 0.9 * of for k, (moved, of) in res["d_params_moved"].items()
@@ -2051,7 +2153,8 @@ def phase_slice_kld_concat(torch):
 def phase_slice_variant(torch, phase, variant, make_cfg, describe):
     """slice_k8_512's model (face 512 px, K = 8, full width, random weights)
     as `make_cfg` changes its configuration: 8 bf16 and 8 f32 frames through
-    InferencePipeline, each with one B1 launch, f32 frames against the plain
+    InferencePipeline, each with one B1 launch on the route of its dtype and
+    the model's attention width, f32 frames against the plain
     attention, bf16 ref_idx against f32's under REF_IDX_MARGIN (random and
     matched key encoders, as phase_slice), and per-frame ms in turns against
     slice_k8_512's model.  `describe(cfg, g)` adds the variant's own keys."""
@@ -2084,8 +2187,10 @@ def phase_slice_variant(torch, phase, variant, make_cfg, describe):
     for dtype, (frames, ms, reset_ms, ref_idx, masses) in out.items():
         res[dtype] = {"frame_ms": ms, "reset_ms": reset_ms, "ref_idx": ref_idx,
                       "masses": masses, "frame_std": frames.std().item()}
-    want = {"bfloat16": {"sm90": 2 * N_FRAMES, "sm90_f32": 0, "cuda_core": 0},
-            "float32": {"sm90": 0, "sm90_f32": 2 * N_FRAMES, "cuda_core": 0}}
+    c = g.ch[cfg.n_downsample_A]   # the attention's channels
+    res["attention_channels"] = c
+    want = {d: b1_want(ak, **{ak.route_for("cuda", getattr(torch, d), c): 2 * N_FRAMES})
+            for d in ("bfloat16", "float32")}
     if by_dtype != want:
         raise AssertionError(f"{variant} launches by dtype and route {by_dtype} != {want}")
 
@@ -2353,6 +2458,58 @@ def phase_slice_adaptive_conv(torch):
                                lambda cfg: cfg.replace(adaptive_conv=True), describe)
 
 
+NGF64 = 64   # the JAX CLI's --ngf (train.py:38): c = 256 at the attention
+
+
+def phase_slice_ngf64(torch):
+    """slice_k8_512's model at --ngf 64: c = 256 channels at the attention
+    (ngf x 2^n_downsample_A), so B1 on the wide routes, once a frame
+    (`phase_slice_variant`)."""
+    def describe(cfg, g):
+        return {"ngf": cfg.ngf}
+    return phase_slice_variant(torch, "slice_k8_512_ngf64", "ngf64",
+                               lambda cfg: cfg.replace(ngf=NGF64), describe)
+
+
+def phase_small_ragged_wide(torch):
+    """Small K = 3 face models at 64 px whose attention takes the new
+    routes: --ngf 9 (c = 36, c % 8 != 0) and --ngf 40 (c = 160 > 128); 3 f32
+    frames of each on the card (B1's ragged and wide f32 routes) against
+    the CPU (the plain version), from one seed; then the same 3 frames in
+    bf16 on the card (the bf16 routes), finite, beside the f32 ones."""
+    from fsvid2vid_tpu_torch.config import face_config
+    from fsvid2vid_tpu_torch.inference.pipeline import run_sequence
+    from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    res, ok = {"phase": "small_ragged_wide", "tol": SMALL_FRAME_TOL}, True
+    for ngf in (9, 40):
+        cfg = face_config(ngf=ngf, nff=8, fine_size=64, load_size=64, n_blocks_F=2, n_shot=3,
+                          batch_size=1, is_train=False, init_variance=1.0)
+        inputs = [t.cpu() for t in seeded_inputs(torch, cfg, 3, 3, seed=2)]
+        frames = {"cpu": run_sequence(cfg, build(torch, cfg, seed=5, device="cpu"), *inputs)}
+        g = build(torch, cfg, seed=5)
+        c = g.ch[cfg.n_downsample_A]
+        routes, launches = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            routes[dtype] = ak.route_for("cuda", getattr(torch, dtype), c)
+            zero_b1(ak)
+            frames[dtype] = run_sequence(cfg, g, *inputs, compute_dtype=dtype).float().cpu()
+            launches[dtype] = b1_launches(ak)
+            ok = ok and launches[dtype] == b1_want(ak, **{routes[dtype]: len(inputs[0])})
+        err = (frames["float32"] - frames["cpu"]).abs().max().item()
+        res[f"ngf{ngf}"] = {
+            "attention_channels": c, "routes": routes, "b1_launches": launches,
+            "max_abs_err": err, "frame_std": frames["cpu"].std().item(),
+            "bf16_vs_f32_max_abs_err": (frames["bfloat16"] - frames["float32"]).abs().max().item(),
+            "bf16_finite": bool(torch.isfinite(frames["bfloat16"]).all())}
+        ok = ok and err <= SMALL_FRAME_TOL and res[f"ngf{ngf}"]["bf16_finite"]
+        del g
+    emit(res)
+    if not ok:
+        raise AssertionError(f"small_ragged_wide: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_small_adaptive(torch, tmp):
     """A small face model at K = 2 with both features (adaptive_conv, the
     adaptive D at num_D 2 and adaptive_D_layers 2): its first temporal f32
@@ -2399,7 +2556,7 @@ def phase_small_adaptive(torch, tmp):
         span = (want.max() - want.min()).item()
         res["serve"][f"k{k}"] = dict(info, frame_ms=ms, max_abs_err=err, frame_range=span,
                                      tol=SERVE_K1_TOL, b1_launches=launches)
-        expected = {"sm90": 0, "sm90_f32": len(labels) if k > 1 else 0, "cuda_core": 0}
+        expected = b1_want(ak, sm90_f32=len(labels) if k > 1 else 0)
         serve_ok = serve_ok and err <= SERVE_K1_TOL * span and launches == expected
         del session, g
     emit(res)
@@ -2440,6 +2597,11 @@ def zero_b1(ak):
 
 def b1_launches(ak):
     return dict(ak.flash_ref_attention.launches_by_route)
+
+
+def b1_want(ak, **launches):
+    """B1's expected launches by route: those named, 0 on every other route."""
+    return {route: launches.get(route, 0) for route in ak.flash_ref_attention.launches_by_route}
 
 
 def sharpen_attention(torch, cfg, netG):
@@ -2666,12 +2828,13 @@ def phase_cli_k8(torch, tmp, chunked):
     return res
 
 
-def phase_finetune_k8(torch, tmp):
+def phase_finetune_k8(torch, tmp, iters=FINETUNE_ITERS_CUT):
     """The JAX package's face_512_K8_attention model (bench.py:224-225)
     adapted to a subject, then served: `cli.test --n_shot 8 --ref_img_id
     <8 frames> --loadSize 512 --fineSize 512 --finetune` on the checkpoint
     phase_cli_k8 left in `tmp` (the networks' parameters do not depend on
-    the image size): 100 finetune steps in bf16, each taking one of the 8
+    the image size): `iters` finetune steps in bf16 (the reference's 100,
+    cut to FINETUNE_ITERS_CUT by default), each taking one of the 8
     references as its target, with the generator's attention on the chunked
     path, then K8_TEST_FRAMES frames in bf16, each with one launch of B1 on
     its bf16 tensor-core route.  Observed through the module function as
@@ -2703,7 +2866,7 @@ def phase_finetune_k8(torch, tmp):
         b1_before = b1_launches(ak)
         t0 = time.perf_counter()
         try:
-            out = real(cfg, models, *args, **kw)
+            out = real(cfg.replace(finetune_iters=iters), models, *args, **kw)
         finally:
             unhook()
         torch.cuda.synchronize()
@@ -2754,8 +2917,8 @@ def phase_finetune_k8(torch, tmp):
     res["peak_memory_gb_test"] = torch.cuda.max_memory_allocated() / 2 ** 30
     emit(res)
     losses = list(res["losses_last"].values()) + list(res["losses_first"].values())
-    want_frames = {"sm90": K8_TEST_FRAMES, "sm90_f32": 0, "cuda_core": 0}
-    if (res["iters"] != 100 or not res["g_restored"] or res["g_params_moved_outside_mask"]
+    want_frames = b1_want(ak, sm90=K8_TEST_FRAMES)
+    if (res["iters"] != iters or not res["g_restored"] or res["g_params_moved_outside_mask"]
             or not g_moved_as_its_gradients_allow(res) or res["ref_shape"][1] != K8
             or res["d_params_moved"]["D"][0] < 0.9 * res["d_params_moved"]["D"][1]
             or any(res["b1_launches_finetune"].values())
@@ -2916,7 +3079,7 @@ def phase_serve_export_k8(torch, tmp):
     with torch.no_grad():
         for p in rounded.parameters():
             p.copy_(p.to(torch.bfloat16).float())
-    checks, want = {}, {"sm90": SERVE_FRAMES, "sm90_f32": 0, "cuda_core": 0}
+    checks, want = {}, b1_want(ak, sm90=SERVE_FRAMES)
     for name, net in (("random", g), ("matched", matched)):
         run = child["runs"][name]
         frames = run["frames"].cuda()
@@ -3174,46 +3337,61 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    smi = phase_device(torch)
-    phase_build()
-    kern = phase_kernels(torch)
-    cv_res = phase_cost_volume(torch)
-    slice_res = phase_slice(torch)
-    kld_res = phase_slice_kld_concat(torch)
-    phase_small(torch)
-    phase_small_kld_concat(torch)
-    phase_k1(torch)
-    train_res = phase_train(torch)
-    phase_small_train(torch)
-    cli_res = phase_cli(torch)
-    phase_small_pose(torch)
-    small_refine_res = phase_small_pose_refine(torch)
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):   # each phase's seconds on a line of their own
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = time.perf_counter() - t0
+        emit({"phase_seconds": name, "seconds": seconds[name]})
+        return out
+
+    smi = timed("device", phase_device, torch)
+    timed("build", phase_build)
+    kern = timed("kernels", phase_kernels, torch)
+    cv_res = timed("cost_volume", phase_cost_volume, torch)
+    slice_res = timed("slice_k8_512", phase_slice, torch)
+    kld_res = timed("slice_k8_512_kld_concat", phase_slice_kld_concat, torch)
+    ngf64_res = timed("slice_k8_512_ngf64", phase_slice_ngf64, torch)
+    timed("small_k3", phase_small, torch)
+    rw_res = timed("small_ragged_wide", phase_small_ragged_wide, torch)
+    timed("small_kld_concat", phase_small_kld_concat, torch)
+    timed("k1_256", phase_k1, torch)
+    train_res = timed("train_face_256", phase_train, torch)
+    timed("small_train", phase_small_train, torch)
+    cli_res = timed("cli_train_face_256", phase_cli, torch)
+    timed("small_pose", phase_small_pose, torch)
+    small_refine_res = timed("small_pose_refine", phase_small_pose_refine, torch)
     with tempfile.TemporaryDirectory(prefix="fsv_pose_") as pose_tmp:
-        pose_res = phase_pose_cli(torch, pose_tmp)
-        phase_finetune_pose(torch, pose_tmp)
-        refine_res = phase_pose_refine_cli(torch, pose_tmp)
-        phase_finetune_pose(torch, pose_tmp, "pose_refine", POSE_REFINE_FLAGS,
-                            "finetune_pose_refine")
-    phase_small_finetune(torch)
-    phase_small_street(torch)
-    street_res = phase_street_cli(torch)
-    chunked = phase_chunked_attention(torch, kern)
-    k3_res = phase_small_k3_train(torch)
+        pose_res = timed("cli_train_pose_512x256", phase_pose_cli, torch, pose_tmp)
+        timed("finetune_pose", phase_finetune_pose, torch, pose_tmp)
+        refine_res = timed("cli_train_pose_refine_512x256", phase_pose_refine_cli, torch,
+                           pose_tmp)
+        timed("finetune_pose_refine", phase_finetune_pose, torch, pose_tmp, "pose_refine",
+              POSE_REFINE_FLAGS, "finetune_pose_refine", FINETUNE_ITERS_CUT)
+    timed("small_finetune", phase_small_finetune, torch)
+    timed("small_street", phase_small_street, torch)
+    street_res = timed("cli_train_street_512", phase_street_cli, torch)
+    chunked = timed("chunked_attention", phase_chunked_attention, torch, kern)
+    k3_res = timed("small_k3_train", phase_small_k3_train, torch)
     with tempfile.TemporaryDirectory(prefix="fsv_k8_") as k8_tmp:
-        k8_res = phase_cli_k8(torch, k8_tmp, chunked)
-        ft8_res = phase_finetune_k8(torch, k8_tmp)
-        phase_eval_512(torch, k8_tmp, os.path.join(k8_tmp, "results_finetune"),
-                       os.path.join(k8_tmp, "data"))
+        k8_res = timed("cli_train_face_256_k8", phase_cli_k8, torch, k8_tmp, chunked)
+        ft8_res = timed("finetune_face_512_k8", phase_finetune_k8, torch, k8_tmp)
+        timed("eval_512", phase_eval_512, torch, k8_tmp,
+              os.path.join(k8_tmp, "results_finetune"), os.path.join(k8_tmp, "data"))
     with tempfile.TemporaryDirectory(prefix="fsv_serve_") as serve_tmp:
-        serve_res = phase_serve_export_k8(torch, serve_tmp)
-        phase_serve_export_k1(torch, serve_tmp)
-        small_serve_res = phase_small_serve_k3(torch, serve_tmp)
-    ad_slice_res = phase_slice_adaptive_conv(torch)
+        serve_res = timed("serve_export_k8_512", phase_serve_export_k8, torch, serve_tmp)
+        timed("serve_export_k1_256", phase_serve_export_k1, torch, serve_tmp)
+        small_serve_res = timed("small_serve_k3", phase_small_serve_k3, torch, serve_tmp)
+    ad_slice_res = timed("slice_k8_512_adaptive_conv", phase_slice_adaptive_conv, torch)
     with tempfile.TemporaryDirectory(prefix="fsv_adaptive_") as ad_tmp:
-        ad_res = phase_cli_adaptive(torch, ad_tmp)
-        ad_ft_res = phase_finetune_pose(torch, ad_tmp, "face_adaptive", ["--adaptive_conv"],
-                                        "finetune_face_adaptive")
-        small_ad_res = phase_small_adaptive(torch, ad_tmp)
+        ad_res = timed("cli_train_face_256_adaptive", phase_cli_adaptive, torch, ad_tmp)
+        ad_ft_res = timed("finetune_face_adaptive", phase_finetune_pose, torch, ad_tmp,
+                          "face_adaptive", ["--adaptive_conv"], "finetune_face_adaptive",
+                          FINETUNE_ITERS_CUT)
+        small_ad_res = timed("small_adaptive", phase_small_adaptive, torch, ad_tmp)
+    emit({"phase_seconds_all": seconds, "total_seconds": time.perf_counter() - t_start})
     bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
     c36 = kern["ragged_c36", "float32"]
     routes = slice_res["launches_by_route"]
@@ -3258,6 +3436,34 @@ def main() -> int:
                         ad_slice_res["launches_by_dtype"]["float32"]["sm90_f32"],
                     "small_adaptive_serve_k2":
                         small_ad_res["serve"]["k2"]["b1_launches"]["sm90_f32"]}
+    # the ragged and wide routes, each at the slice's hw and K: c = 124 and
+    # c = 256 (the --ngf 64 model's attention)
+    rw = lambda ngf, dtype: rw_res[f"ngf{ngf}"]["b1_launches"][dtype]
+    new_paths = {
+        "sm90_ragged": {"small_ragged_wide_ngf9": rw(9, "bfloat16")["sm90_ragged"]},
+        "sm90_ragged_f32": {"small_ragged_wide_ngf9": rw(9, "float32")["sm90_ragged_f32"]},
+        "sm90_wide": {"slice_k8_512_ngf64": ngf64_res["launches_by_dtype"]["bfloat16"]["sm90_wide"],
+                      "small_ragged_wide_ngf40": rw(40, "bfloat16")["sm90_wide"]},
+        "sm90_wide_f32": {
+            "slice_k8_512_ngf64": ngf64_res["launches_by_dtype"]["float32"]["sm90_wide_f32"],
+            "small_ragged_wide_ngf40": rw(40, "float32")["sm90_wide_f32"]}}
+    new_routes = []
+    for route, paths in new_paths.items():
+        dtype = "float32" if route.endswith("_f32") else "bfloat16"
+        case, other = ("slice_c124", "ragged_c36") if "ragged" in route else (
+            "slice_c256", "wide_c512")
+        r = kern[case, dtype]
+        new_routes.append({
+            "name": f"flash_ref_attention_{route}", **b1, "shape": ATTENTION_CASES[case],
+            "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": r["max_abs_err_out"],
+            f"max_abs_err_{other}": kern[other, dtype]["max_abs_err_out"],
+            **{k: r.get(k) for k in keys + ("design_bound_ms", "design_bound_share")},
+            "dtype": dtype, **({"f32_cuda_core_bound_ms": r["f32_cuda_core_bound_ms"]}
+                               if dtype == "float32" else {}),
+            **({f"at_{other}": {k: kern[other, dtype].get(k) for k in keys + (
+                "design_bound_ms", "design_bound_share")}} if "wide" in route else {})})
     emit({"kernels": [{
         "name": "flash_ref_attention_sm90", **b1,
         "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention_sm90.cu",
@@ -3272,7 +3478,8 @@ def main() -> int:
         "max_abs_err_without_lf": kern["slice_nolf", "float32"]["max_abs_err_out"],
         **{k: f32[k] for k in keys}, "dtype": "float32",
         "f32_cuda_core_bound_ms": f32["f32_cuda_core_bound_ms"],
-        "previous_design": b1_cuda_core}, {
+        "previous_design": b1_cuda_core},
+        *new_routes, {
         "name": "cost_volume_tc", **b2, "source": "fsvid2vid_tpu_torch/csrc/cost_volume_tc.cu",
         "launches": train_res["cost_volume_launches_by_route"]["tc"],
         "launches_by_path": {"train_face_256": train_res["cost_volume_launches_by_route"]["tc"],

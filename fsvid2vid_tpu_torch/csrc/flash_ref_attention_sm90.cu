@@ -1,9 +1,10 @@
 // Multi-reference flash attention for Hopper (sm_90a), forward only: the
-// tensor-core routes of kernel B1, in bf16 and in f32.
+// tensor-core routes of kernel B1, in bf16 and in f32, for every channel
+// count 1 <= c <= 512 that the JAX generator sends to its Pallas kernel.
 //
 // Replaces the Pallas TPU kernel fsvid2vid_tpu/ops/pallas/attention_kernel.py
-// (flash_ref_attention, body _kernel) for inputs with c % 8 == 0 and
-// c <= 128; csrc/flash_ref_attention.cu keeps the other channel counts.  For
+// (flash_ref_attention, body _kernel).  csrc/flash_ref_attention.cu, the
+// CUDA-core design these routes replaced, stays as the previous design.  For
 // each batch element b and query q, with N = K * hw_key keys:
 //
 //   s[n]         = query[b,q,:] . key[b,n,:]
@@ -27,15 +28,46 @@
 // pre-pass kernel writes the parts of q, k, xf and lf into scratch memory
 // that the caller allocates.  bf16 inputs are their own single part.
 //
+// Channel counts.  TMA rows need 16-byte strides, so the tensor maps see c
+// rounded up to cp, a multiple of 8.  Where c % 8 != 0 ("ragged"), the same
+// pre-pass writes the inputs with their channels zero-padded to cp (in bf16
+// one more pass, ~2x the inputs' bytes; in f32 the split's own pass): zero
+// channels add nothing to q.k nor to the outputs, whose stores stop at c.
+// The other way in, cp.async of the unpadded rows into the swizzled tiles,
+// would save that pass but give up TMA's one-thread copies and its zero-fill
+// of the ragged edges.  Two walks share the softmax, the mass table and the
+// value products:
+//  - c <= 128, the narrow walk (flash_ref_attention_sm90_kernel): the
+//    128-query tile stays in shared memory with up to 2 channel boxes, and a
+//    consumer's accumulators hold every value channel [xf | lf], up to
+//    2 x 128;
+//  - 128 < c <= 512, the wide walk (flash_ref_attention_wide_kernel):
+//    neither fits.  At c = 256 with lf the query tile and three key stages
+//    would take ~353 KB of the 227 KB, and O would take 256 registers a
+//    thread.  So the value channels [xf | lf], in 64-channel boxes, are cut
+//    into slices of WIDE_VB = 4 boxes (256 channels, 128 accumulators a
+//    thread, as the narrow walk at c = 128 with lf), one slice per block
+//    along the grid's z; and QK^T streams through shared memory in
+//    64-channel chunks, each chunk bringing its query box with its key box,
+//    so no tile ever holds all c channels.  The price: every slice
+//    recomputes S = QK^T (at c = 256 with lf, 2 slices: QK^T twice, 4/3 of
+//    the useful products; at c = 512 with lf, 4 slices, 2x), and the query
+//    box is fetched again with every key tile (from L2: a block's 128 rows
+//    stay there), twice a key box's bytes in bf16.
+//
 // Bounds on an H100 SXM at the serving shape (face 512 px, K = 8: B = 1,
 // hw = 16384, N = 131072, c = 128, with lf): the products are 1.65e12 FLOP,
 // 1.7 ms at the 989 TFLOP/s bf16 tensor-core peak, against ~34 us for the
 // ~113 MB of bf16 inputs and outputs.  In f32 the split products are 12 bf16
 // products of the 5.5e11 FLOP unit (6 for QK^T, 3 for each of xf and lf),
 // 6.67 ms at that peak; the pre-pass moves ~0.45 GB (~0.14 ms at 3.35 TB/s).
-// Both are bound by operations.
+// Both are bound by operations.  At c = 256 (the --ngf 64 model) the useful
+// products are 3.3e12 FLOP, 3.34 ms bf16, and 13.3 ms as f32's split
+// products; the wide walk does 4/3 of them (QK^T once per value slice).
 //
-// Design.  A block owns BQ = 128 queries of one batch element and is three
+// Design (the narrow walk; the wide walk's differences are at
+// flash_ref_attention_wide_kernel).  A block owns BQ = 128 queries of one
+// batch element and is three
 // warpgroups: a producer and two consumers of 64 query rows each.
 //  - The producer's one thread loads the query tile (its parts) once and then
 //    streams key tiles of BK keys (the parts of K, then the parts of
@@ -71,8 +103,7 @@
 //    past the f32 tolerance of the slice (scripts/torch_kernel_variants.py,
 //    b1_f32 "no_flush").
 //  - Ragged shapes: TMA zero-fills query rows past hw (never stored) and
-//    channels past c (stores are masked to c).  Rows need 16-byte strides,
-//    hence c % 8 == 0.
+//    channels past cp (stores are masked to c).
 
 #include <math.h>
 #include <stddef.h>
@@ -84,7 +115,8 @@ namespace {
 constexpr int BQ = 128;                 // queries per block
 constexpr int THREADS = 384;            // two consumer warpgroups, one producer
 constexpr int CONSUMERS = 256;
-constexpr int MAX_C = 128;
+constexpr int NARROW_MAX_C = 128;      // the narrow walk's channels
+constexpr int MAX_C = 512;             // the wide walk's
 constexpr int Q_BOX_BYTES = BQ * 128;   // 128 query rows x 64 bf16 channels
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -131,25 +163,73 @@ __host__ __device__ constexpr size_t smem_bytes(int nb, bool has_lf, int n_refs)
          (size_t)BQ * n_refs * sizeof(float2);
 }
 
-// Scratch memory of the f32 route: the bf16 parts of q (QP x b x hw x c), k
-// (QP x b x n x c), xf and lf (VP x b x n x c each), then the f32 flush sums,
-// one per output accumulator of every consumer thread of every block.
+// The wide walk: value slices of WIDE_VB 64-channel boxes; a ring of
+// QK_STAGES chunks [query box parts | key box parts] and one of V_STAGES
+// value tiles [V parts x WIDE_VB boxes of BK keys].
+constexpr int WIDE_VB = 4;
+template <typename T> struct Wide;
+template <> struct Wide<__nv_bfloat16> {
+  static constexpr int QK_STAGES = 4;
+  static constexpr int V_STAGES = 2;
+};
+template <> struct Wide<float> {
+  static constexpr int QK_STAGES = 3;
+  static constexpr int V_STAGES = 1;
+};
+template <typename T> __host__ __device__ constexpr int wide_qk_bytes() {
+  return Design<T>::QP * (Q_BOX_BYTES + k_box_bytes<T>());
+}
+template <typename T> __host__ __device__ constexpr int wide_v_bytes() {
+  return Design<T>::VP * WIDE_VB * k_box_bytes<T>();
+}
+template <typename T> __host__ __device__ constexpr int wide_tiles_bytes() {
+  return Wide<T>::QK_STAGES * wide_qk_bytes<T>() + Wide<T>::V_STAGES * wide_v_bytes<T>();
+}
+template <typename T> __host__ __device__ constexpr int wide_barrier_bytes() {
+  return 8 * 2 * (Wide<T>::QK_STAGES + Wide<T>::V_STAGES);
+}
+template <typename T> __host__ __device__ constexpr size_t wide_smem_bytes(int n_refs) {
+  return 1024 + wide_tiles_bytes<T>() + wide_barrier_bytes<T>() +
+         (size_t)BQ * n_refs * sizeof(float2);
+}
+
+__host__ __device__ constexpr int padded(int c) { return (c + 7) / 8 * 8; }
+__host__ __device__ constexpr int boxes(int cp) { return (cp + 63) / 64; }
+// value boxes [xf | lf] and the wide walk's slices of them
+__host__ __device__ constexpr int value_boxes(int cp, bool has_lf) {
+  return boxes(cp) * (has_lf ? 2 : 1);
+}
+__host__ __device__ constexpr int wide_slices(int cp, bool has_lf) {
+  return (value_boxes(cp, has_lf) + WIDE_VB - 1) / WIDE_VB;
+}
+
+// Scratch memory: the bf16 parts of q (QP x b x hw x cp), k (QP x b x n x
+// cp), xf and lf (VP x b x n x cp each), written by the pre-pass, then the
+// f32 flush sums, one per output accumulator of every consumer thread of
+// every block (f32 only).  A route whose inputs TMA reads in place needs
+// none.
 struct Scratch {
   size_t q, k, x, l, acc, total;   // byte offsets and size
 };
-Scratch scratch_layout(int b, int hw, int n, int c, bool has_lf) {
-  using D = Design<float>;
-  const size_t qe = (size_t)b * hw * c, ke = (size_t)b * n * c;
+Scratch scratch_layout(int qp, int vp, int b, int hw, int n, int cp, bool has_lf,
+                       size_t acc_floats) {
+  const size_t qe = (size_t)b * hw * cp, ke = (size_t)b * n * cp;
   Scratch s;
   s.q = 0;
-  s.k = s.q + 2 * D::QP * qe;
-  s.x = s.k + 2 * D::QP * ke;
-  s.l = s.x + 2 * D::VP * ke;
-  s.acc = (s.l + (has_lf ? 2 * D::VP * ke : 0) + 255) / 256 * 256;
-  const size_t blocks = (size_t)((hw + BQ - 1) / BQ) * b;
-  const int no = 32 * (c <= 64 ? 1 : 2) * (has_lf ? 2 : 1);
-  s.total = s.acc + blocks * CONSUMERS * no * sizeof(float);
+  s.k = s.q + 2 * qp * qe;
+  s.x = s.k + 2 * qp * ke;
+  s.l = s.x + 2 * vp * ke;
+  s.acc = (s.l + (has_lf ? 2 * vp * ke : 0) + 255) / 256 * 256;
+  s.total = s.acc + acc_floats * sizeof(float);
   return s;
+}
+// the f32 routes' flush sums: the narrow walk's 32 per box of [xf | lf],
+// the wide walk's 32 * WIDE_VB, per consumer thread and block
+size_t narrow_acc_floats(int b, int hw, int cp, bool has_lf) {
+  return (size_t)((hw + BQ - 1) / BQ) * b * CONSUMERS * 32 * value_boxes(cp, has_lf);
+}
+size_t wide_acc_floats(int b, int hw, int cp, bool has_lf) {
+  return (size_t)((hw + BQ - 1) / BQ) * b * wide_slices(cp, has_lf) * CONSUMERS * 32 * WIDE_VB;
 }
 
 // --- the consumers' turns: named barriers 1 and 2, 256 threads each --------
@@ -182,6 +262,38 @@ split_kernel(const float4* __restrict__ x, __nv_bfloat16* __restrict__ out, size
       packed.x = pack_bf16(r[0], r[1]);
       packed.y = pack_bf16(r[2], r[3]);
       *reinterpret_cast<uint2*>(out + p * part_stride + 4 * i) = packed;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[e] = bf16_rest(r[e]);
+    }
+  }
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// The pre-pass where c != cp: x (rows x c) -> PARTS bf16 arrays of rows x
+// cp, part_stride elements apart, channels c..cp-1 zero; one thread per 4
+// output channels (8-byte stores, cp % 8 == 0), scalar loads since the
+// input rows are not aligned.  bf16 inputs: one part, their zero-padded copy.
+template <typename TIn, int PARTS>
+__global__ void __launch_bounds__(256)
+split_pad_kernel(const TIn* __restrict__ x, __nv_bfloat16* __restrict__ out, size_t rows, int c,
+                 int cp, size_t part_stride) {
+  const int groups = cp / 4;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < rows * groups;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t row = i / groups;
+    const int ch = (int)(i % groups) * 4;
+    const TIn* src = x + row * c + ch;
+    float r[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r[e] = ch + e < c ? to_f32(src[e]) : 0.f;
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p) {
+      uint2 packed;
+      packed.x = pack_bf16(r[0], r[1]);
+      packed.y = pack_bf16(r[2], r[3]);
+      *reinterpret_cast<uint2*>(out + p * part_stride + row * cp + ch) = packed;
 #pragma unroll
       for (int e = 0; e < 4; ++e) r[e] = bf16_rest(r[e]);
     }
@@ -283,6 +395,19 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+// Channels ch and ch + 1 (ch even, ch < c) of an output row of c channels:
+// one paired store where c is even (aligned), else one or two single ones.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* row, int ch, int c, float a, float b) {
+  if (c % 2 == 0) {
+    store2(row + ch, a, b);
+  } else {
+    store1(row + ch, a);
+    if (ch + 1 < c) store1(row + ch + 1, b);
+  }
 }
 
 // Accumulator layout of wgmma m64nN (per warpgroup thread, warp w, lane l):
@@ -490,7 +615,7 @@ flash_ref_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int ch = col % VB;
       if (q < hw && ch < c) {
         T* out = (HAS_LF && col >= VB) ? out_l : out_x;
-        store2(out + ((size_t)b * hw + q) * c + ch, o[i] * inv_l[h], o[i + 1] * inv_l[h]);
+        store_pair(out + ((size_t)b * hw + q) * c, ch, c, o[i] * inv_l[h], o[i + 1] * inv_l[h]);
       }
     }
     __syncwarp();
@@ -502,6 +627,263 @@ flash_ref_attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int r = quad; r < n_refs; r += 4) {
         const float2 e = table[row * n_refs + r];
         vis[((size_t)b * hw + q) * n_refs + r] = e.x * ex2(e.y - m[h]) * inv_l[h];
+      }
+    }
+  }
+}
+
+// S (64 x BK, f32) (+)= this warpgroup's 64 query rows . the BK keys, over
+// one 64-channel chunk: the query box's and the key box's parts, as
+// issue_qk's products; FIRST_CHUNK starts the sum.
+template <typename T, bool FIRST_CHUNK>
+__device__ __forceinline__ void issue_qk_chunk(float (&s)[Design<T>::BK / 2], uint32_t q_rows,
+                                               uint32_t k_box) {
+  constexpr int FIRST = first_product<T>();
+#pragma unroll
+  for (int pr = FIRST; pr < 6; ++pr)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(s, smem_desc(q_rows + q_part(pr) * Q_BOX_BYTES + kk * 32, 16, 1024),
+               smem_desc(k_box + k_part(pr) * k_box_bytes<T>() + kk * 32, 16, 1024),
+               !(FIRST_CHUNK && pr == FIRST && kk == 0));
+}
+
+// The wide walk (128 < c <= 512).  Block (x, y, z): queries 128x..128x+127
+// of batch element y, value boxes WIDE_VB z .. WIDE_VB z + WIDE_VB - 1 of
+// [xf boxes 0..nq-1 | lf boxes 0..nq-1] (n_values of them in all).  The
+// producer streams, per key tile, nq chunks [query box | key box] (their
+// parts) into the QK ring and then the slice's value boxes into the V ring.
+// Each consumer warpgroup (64 query rows; no turns) issues the previous
+// tile's O += P V, then sums S over the chunks, keeping one chunk's
+// products in flight while the next arrives and releasing a chunk (and the
+// previous value tile) once its products are done; every product is done
+// before the softmax, as the narrow walk's.  Every slice computes the same
+// S, m, l and masses; slice 0 writes vis.
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_ref_attention_wide_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_x,
+                                const __grid_constant__ CUtensorMap tm_l,
+                                T* __restrict__ out_x, T* __restrict__ out_l,
+                                float* __restrict__ vis, float* __restrict__ acc, int batch,
+                                int hw, int c, int nq, int n_values, int n_refs, int hw_key) {
+  using D = Design<T>;
+  using W = Wide<T>;
+  constexpr int BK = D::BK;
+  constexpr int KB = k_box_bytes<T>();
+  constexpr int NO = 32 * WIDE_VB;                 // output accumulators per thread
+  constexpr int QKB = wide_qk_bytes<T>();
+  constexpr int VBY = wide_v_bytes<T>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t qk_ring = base;
+  const uint32_t v_ring = base + W::QK_STAGES * QKB;
+  const uint32_t qk_full = base + wide_tiles_bytes<T>();
+  const uint32_t qk_empty = qk_full + 8 * W::QK_STAGES;
+  const uint32_t v_full = qk_empty + 8 * W::QK_STAGES;
+  const uint32_t v_empty = v_full + 8 * W::V_STAGES;
+  float2* table =
+      reinterpret_cast<float2*>(smem_raw + (qk_full - raw) + wide_barrier_bytes<T>());
+
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int v0 = WIDE_VB * blockIdx.z;             // the slice's first value box
+  const int nv = min(WIDE_VB, n_values - v0);      // its boxes that exist
+  const int tiles_per_ref = (hw_key + BK - 1) / BK;
+  const int n_tiles = n_refs * tiles_per_ref;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W::QK_STAGES; ++s) {
+      mbar_init(qk_full + 8 * s, 1);
+      mbar_init(qk_empty + 8 * s, CONSUMERS);
+    }
+    for (int s = 0; s < W::V_STAGES; ++s) {
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(v_empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---------------- producer ----------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int qs = 0, vs = 0, ref = 0, j = 0;
+      uint32_t q_phase = 0, v_phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int row = ref * hw_key + j * BK;
+        for (int cb = 0; cb < nq; ++cb) {
+          const uint32_t full = qk_full + 8 * qs;
+          const uint32_t dst = qk_ring + qs * QKB;
+          mbar_wait(qk_empty + 8 * qs, q_phase ^ 1);
+          mbar_expect_tx(full, QKB);
+          for (int p = 0; p < D::QP; ++p) {
+            tma_load(dst + p * Q_BOX_BYTES, &tm_q, full, 64 * cb, q0, p * batch + b);
+            tma_load(dst + D::QP * Q_BOX_BYTES + p * KB, &tm_k, full, 64 * cb, row,
+                     p * batch + b);
+          }
+          if (++qs == W::QK_STAGES) { qs = 0; q_phase ^= 1; }
+        }
+        const uint32_t full = v_full + 8 * vs;
+        const uint32_t dst = v_ring + vs * VBY;
+        mbar_wait(v_empty + 8 * vs, v_phase ^ 1);
+        mbar_expect_tx(full, D::VP * nv * KB);
+        for (int p = 0; p < D::VP; ++p)
+          for (int v = 0; v < nv; ++v) {
+            const int g = v0 + v;
+            tma_load(dst + (p * WIDE_VB + v) * KB, g < nq ? &tm_x : &tm_l, full, 64 * (g % nq),
+                     row, p * batch + b);
+          }
+        if (++vs == W::V_STAGES) { vs = 0; v_phase ^= 1; }
+        if (++j == tiles_per_ref) { j = 0; ++ref; }
+      }
+    }
+  } else {
+    // ---------------- consumers ----------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int lane = threadIdx.x % 32;
+    const int quad = lane % 4;
+    const int row0 = 64 * wg + 16 * ((threadIdx.x % 128) / 32) + lane / 4;   // and row0 + 8
+    const uint32_t rows = wg * (64 * 128);   // this warpgroup's rows in a query box
+
+    float o[NO], s[BK / 2];
+    uint32_t p_hi[BK / 4], p_lo[BK / 4];   // p_lo: f32 only
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, sr[2] = {0.f, 0.f};
+    int ref = 0, j = 0;
+    float* my_acc = acc +
+                    (size_t)((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) *
+                        NO * CONSUMERS +
+                    threadIdx.x;
+    float m_flushed[2] = {-INFINITY, -INFINITY};
+    bool flushed = false;
+
+    auto score = [&]() {
+      softmax_tile<T, NO>(s, o, p_hi, p_lo, m, l, sr, hw_key - j * BK, quad);
+      if (j == tiles_per_ref - 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float total = quad_sum(sr[h]);
+          if (quad == 0) table[(row0 + 8 * h) * n_refs + ref] = make_float2(total, m[h]);
+          sr[h] = 0.f;
+        }
+        j = 0;
+        ++ref;
+      } else {
+        ++j;
+      }
+    };
+    auto flush = [&]() {
+      float scale[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        scale[h] = ex2(m_flushed[h] - m[h]);
+        m_flushed[h] = m[h];
+      }
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        float v = o[i];
+        if (flushed) v = fmaf(my_acc[i * CONSUMERS], scale[(i / 2) % 2], v);
+        my_acc[i * CONSUMERS] = v;
+        o[i] = 0.f;
+      }
+      flushed = true;
+    };
+    auto fence_p = [&]() {
+      fence_regs(p_hi);
+      if constexpr (D::VP == 2) fence_regs(p_lo);
+    };
+
+    int qs = 0, vs = 0;
+    uint32_t q_phase = 0, v_phase = 0;
+    // O += P V of the tile scored last, from V ring slot vs
+    auto issue_values = [&]() {
+      mbar_wait(v_full + 8 * vs, v_phase);
+      const uint32_t v = v_ring + vs * VBY;
+      wgmma_fence();
+      issue_pv<T, NO>(o, p_hi, p_lo, v, v + WIDE_VB * KB);
+      wgmma_commit();
+    };
+    for (int t = 0; t < n_tiles; ++t) {
+      if (t > 0) issue_values();
+      int prev = -1;    // the QK ring slot of the chunk before
+      for (int cb = 0; cb < nq; ++cb) {
+        mbar_wait(qk_full + 8 * qs, q_phase);
+        const uint32_t chunk = qk_ring + qs * QKB;
+        wgmma_fence();
+        if (cb == 0)
+          issue_qk_chunk<T, true>(s, chunk + rows, chunk + D::QP * Q_BOX_BYTES);
+        else
+          issue_qk_chunk<T, false>(s, chunk + rows, chunk + D::QP * Q_BOX_BYTES);
+        wgmma_commit();
+        wgmma_wait<1>();   // all but this chunk's products are done
+        if (prev >= 0) {
+          mbar_arrive(qk_empty + 8 * prev);
+        } else if (t > 0) {   // the previous tile's values
+          mbar_arrive(v_empty + 8 * vs);
+          if (++vs == W::V_STAGES) { vs = 0; v_phase ^= 1; }
+        }
+        prev = qs;
+        if (++qs == W::QK_STAGES) { qs = 0; q_phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(s);
+      fence_p();
+      mbar_arrive(qk_empty + 8 * prev);
+      if constexpr (D::FLUSH_TILES > 0)
+        if (t > 0 && t % D::FLUSH_TILES == 0) flush();   // O holds tiles < t, at max m
+      score();
+    }
+    issue_values();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_p();
+
+    // ---------------- epilogue ----------------
+    if constexpr (D::FLUSH_TILES > 0) {
+      if (flushed) {
+        float scale[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) scale[h] = ex2(m_flushed[h] - m[h]);
+#pragma unroll
+        for (int i = 0; i < NO; ++i) o[i] = fmaf(my_acc[i * CONSUMERS], scale[(i / 2) % 2], o[i]);
+      }
+    }
+    float inv_l[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] = quad_sum(l[h]);
+      inv_l[h] = 1.f / l[h];
+    }
+#pragma unroll
+    for (int i = 0; i < NO; i += 2) {
+      const int h = (i / 2) % 2;
+      const int q = q0 + row0 + 8 * h;
+      const int col = 8 * (i / 4) + 2 * quad;
+      const int g = v0 + col / 64;
+      const int ch = 64 * (g % nq) + col % 64;
+      if (q < hw && g < n_values && ch < c) {
+        T* out = g < nq ? out_x : out_l;
+        store_pair(out + ((size_t)b * hw + q) * c, ch, c, o[i] * inv_l[h], o[i + 1] * inv_l[h]);
+      }
+    }
+    if (blockIdx.z == 0) {
+      __syncwarp();
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        const int q = q0 + row;
+        if (q >= hw) continue;
+        for (int r = quad; r < n_refs; r += 4) {
+          const float2 e = table[row * n_refs + r];
+          vis[((size_t)b * hw + q) * n_refs + r] = e.x * ex2(e.y - m[h]) * inv_l[h];
+        }
       }
     }
   }
@@ -522,14 +904,32 @@ int launch(const CUtensorMap* maps, void* ox, void* ol, void* vis, void* acc, in
   return (int)cudaGetLastError();
 }
 
+// The narrow walk on tensor maps of cp channels (cp <= 128), stores of c.
 template <typename T>
 int launch_for(const CUtensorMap* maps, bool has_lf, void* ox, void* ol, void* vis, void* acc,
-               int b, int hw, int n, int c, int n_refs, cudaStream_t s) {
-  if (c <= 64)
+               int b, int hw, int n, int c, int cp, int n_refs, cudaStream_t s) {
+  if (cp <= 64)
     return has_lf ? launch<T, 1, true>(maps, ox, ol, vis, acc, b, hw, n, c, n_refs, s)
                   : launch<T, 1, false>(maps, ox, ol, vis, acc, b, hw, n, c, n_refs, s);
   return has_lf ? launch<T, 2, true>(maps, ox, ol, vis, acc, b, hw, n, c, n_refs, s)
                 : launch<T, 2, false>(maps, ox, ol, vis, acc, b, hw, n, c, n_refs, s);
+}
+
+// The wide walk on tensor maps of cp channels (128 < cp <= 512), stores of c.
+template <typename T>
+int launch_wide(const CUtensorMap* maps, bool has_lf, void* ox, void* ol, void* vis, void* acc,
+                int b, int hw, int n, int c, int cp, int n_refs, cudaStream_t stream) {
+  auto kern = flash_ref_attention_wide_kernel<T>;
+  const size_t smem = wide_smem_bytes<T>(n_refs);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((hw + BQ - 1) / BQ, b, wide_slices(cp, has_lf));
+  kern<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], static_cast<T*>(ox),
+                                        static_cast<T*>(ol), static_cast<float*>(vis),
+                                        static_cast<float*>(acc), b, hw, c, boxes(cp),
+                                        value_boxes(cp, has_lf), n_refs, n / n_refs);
+  return (int)cudaGetLastError();
 }
 
 template <int PARTS>
@@ -541,72 +941,209 @@ cudaError_t split(const void* x, void* out, size_t n, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-bool valid_shape(int b, int hw, int n, int c, int n_refs) {
-  return b >= 1 && hw >= 1 && n_refs >= 1 && n >= n_refs && n % n_refs == 0 && c >= 8 &&
-         c <= MAX_C && c % 8 == 0;
+// x (rows x c of TIn) as PARTS bf16 arrays of rows x cp: split_kernel where
+// nothing is padded, else split_pad_kernel.
+template <typename TIn, int PARTS>
+cudaError_t to_parts(const void* x, void* out, size_t rows, int c, int cp, cudaStream_t stream) {
+  if constexpr (sizeof(TIn) == 4) {
+    if (c == cp) return split<PARTS>(x, out, rows * c, stream);
+  }
+  const size_t groups = rows * (cp / 4);
+  const int blocks = (int)((groups + 255) / 256 < 132 * 16 ? (groups + 255) / 256 : 132 * 16);
+  split_pad_kernel<TIn, PARTS><<<blocks, 256, 0, stream>>>(
+      static_cast<const TIn*>(x), static_cast<__nv_bfloat16*>(out), rows, c, cp, rows * cp);
+  return cudaGetLastError();
+}
+
+// The pre-pass into scratch laid out by sc, then the four tensor maps on it.
+template <typename TIn, int QP, int VP>
+int prepare(EncodeTiled fn, CUtensorMap* maps, const void* query, const void* key,
+            const void* xf, const void* lf, uint8_t* base, const Scratch& sc, int b, int hw,
+            int n, int c, int cp, int key_box, cudaStream_t s) {
+  void *qp = base + sc.q, *kp = base + sc.k, *xp = base + sc.x, *lp = base + sc.l;
+  if (!encode(fn, &maps[0], qp, QP * b, hw, cp, BQ) ||
+      !encode(fn, &maps[1], kp, QP * b, n, cp, key_box) ||
+      !encode(fn, &maps[2], xp, VP * b, n, cp, key_box) ||
+      !encode(fn, &maps[3], lf ? lp : xp, VP * b, n, cp, key_box))
+    return -2;
+  cudaError_t err = to_parts<TIn, QP>(query, qp, (size_t)b * hw, c, cp, s);
+  if (err == cudaSuccess) err = to_parts<TIn, QP>(key, kp, (size_t)b * n, c, cp, s);
+  if (err == cudaSuccess) err = to_parts<TIn, VP>(xf, xp, (size_t)b * n, c, cp, s);
+  if (err == cudaSuccess && lf) err = to_parts<TIn, VP>(lf, lp, (size_t)b * n, c, cp, s);
+  return (int)err;
+}
+
+// The four tensor maps on the bf16 inputs themselves (c % 8 == 0).
+int encode_inputs(EncodeTiled fn, CUtensorMap* maps, const void* query, const void* key,
+                  const void* xf, const void* lf, int b, int hw, int n, int c, int key_box) {
+  return encode(fn, &maps[0], query, b, hw, c, BQ) && encode(fn, &maps[1], key, b, n, c, key_box) &&
+                 encode(fn, &maps[2], xf, b, n, c, key_box) &&
+                 encode(fn, &maps[3], lf ? lf : xf, b, n, c, key_box)
+             ? 0
+             : -2;
+}
+
+bool valid_shape(int b, int hw, int n, int c, int n_refs, int min_c, int max_c) {
+  return b >= 1 && hw >= 1 && n_refs >= 1 && n >= n_refs && n % n_refs == 0 && c >= min_c &&
+         c <= max_c;
+}
+bool narrow_shape(int b, int hw, int n, int c, int n_refs) {
+  return valid_shape(b, hw, n, c, n_refs, 1, NARROW_MAX_C);
+}
+bool wide_shape(int b, int hw, int n, int c, int n_refs) {
+  return valid_shape(b, hw, n, c, n_refs, NARROW_MAX_C + 1, MAX_C);
+}
+
+// The bf16 routes' scratch: the zero-padded inputs where c % 8 != 0, else none.
+Scratch bf16_scratch(int b, int hw, int n, int c, bool has_lf) {
+  return scratch_layout(1, 1, b, hw, n, c % 8 ? padded(c) : 0, has_lf, 0);
 }
 
 }  // namespace
 
 extern "C" {
 
-// query: (b, hw, c); key / xf / lf: (b, n, c), lf may be null; all bf16,
-// contiguous, 16-byte aligned, c % 8 == 0, c <= 128.  out_x / out_l:
-// (b, hw, c) bf16; vis: (b, hw, n_refs) f32.  Launches on `stream` without
-// synchronising and returns 0, a CUDA error code, -1 when the CUDA driver has no
-// cuTensorMapEncodeTiled, or -2 when a tensor map cannot be encoded.
+// Every entry point: query (b, hw, c); key / xf / lf (b, n, c), lf may be
+// null; contiguous, 16-byte aligned.  out_x / out_l: (b, hw, c) of the
+// inputs' dtype; vis: (b, hw, n_refs) f32.  Scratch, where an entry takes
+// it: the bytes its *_scratch_bytes function gives, 256-byte aligned.  Each
+// launches on `stream` without synchronising and returns 0, a CUDA error
+// code, -1 when the CUDA driver has no cuTensorMapEncodeTiled, or -2 when a
+// tensor map cannot be encoded.
+
+// bf16, c % 8 == 0, c <= 128: the narrow walk on the inputs.
 int fsv_flash_ref_attention_sm90(const void* query, const void* key, const void* xf,
                                  const void* lf, void* out_x, void* out_l, void* vis, int b,
                                  int hw, int n, int c, int n_refs, void* stream) {
-  if (!valid_shape(b, hw, n, c, n_refs)) return (int)cudaErrorInvalidValue;
+  if (!narrow_shape(b, hw, n, c, n_refs) || c % 8) return (int)cudaErrorInvalidValue;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1;
-  constexpr int BK = Design<__nv_bfloat16>::BK;
   CUtensorMap maps[4];
-  if (!encode(fn, &maps[0], query, b, hw, c, BQ) || !encode(fn, &maps[1], key, b, n, c, BK) ||
-      !encode(fn, &maps[2], xf, b, n, c, BK) ||
-      !encode(fn, &maps[3], lf ? lf : xf, b, n, c, BK))
+  if (encode_inputs(fn, maps, query, key, xf, lf, b, hw, n, c, Design<__nv_bfloat16>::BK))
     return -2;
   return launch_for<__nv_bfloat16>(maps, lf != nullptr, out_x, out_l, vis, nullptr, b, hw, n, c,
-                                   n_refs, static_cast<cudaStream_t>(stream));
+                                   c, n_refs, static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of scratch memory one f32 call needs; 0 for a shape it does not take.
+// Bytes of scratch one bf16 call of the ragged (c <= 128, c % 8 != 0) or
+// wide (128 < c <= 512) route needs: the inputs zero-padded to a multiple
+// of 8 channels, or 0 where c % 8 == 0; 0 for a shape neither takes.
+size_t fsv_flash_ref_attention_sm90_padded_scratch_bytes(int b, int hw, int n, int c, int n_refs,
+                                                         int has_lf) {
+  if (!valid_shape(b, hw, n, c, n_refs, 1, MAX_C)) return 0;
+  return bf16_scratch(b, hw, n, c, has_lf != 0).total;
+}
+
+// bf16, c <= 128, c % 8 != 0: the zero-padding pass, then the narrow walk.
+int fsv_flash_ref_attention_sm90_ragged(const void* query, const void* key, const void* xf,
+                                        const void* lf, void* scratch, void* out_x, void* out_l,
+                                        void* vis, int b, int hw, int n, int c, int n_refs,
+                                        void* stream) {
+  if (!narrow_shape(b, hw, n, c, n_refs) || c % 8 == 0) return (int)cudaErrorInvalidValue;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cp = padded(c);
+  CUtensorMap maps[4];
+  const int err = prepare<__nv_bfloat16, 1, 1>(fn, maps, query, key, xf, lf,
+                                               static_cast<uint8_t*>(scratch),
+                                               bf16_scratch(b, hw, n, c, lf != nullptr), b, hw,
+                                               n, c, cp, Design<__nv_bfloat16>::BK, s);
+  if (err) return err;
+  return launch_for<__nv_bfloat16>(maps, lf != nullptr, out_x, out_l, vis, nullptr, b, hw, n, c,
+                                   cp, n_refs, s);
+}
+
+// bf16, 128 < c <= 512: the wide walk, on the inputs where c % 8 == 0, else
+// after the zero-padding pass.
+int fsv_flash_ref_attention_sm90_wide(const void* query, const void* key, const void* xf,
+                                      const void* lf, void* scratch, void* out_x, void* out_l,
+                                      void* vis, int b, int hw, int n, int c, int n_refs,
+                                      void* stream) {
+  if (!wide_shape(b, hw, n, c, n_refs)) return (int)cudaErrorInvalidValue;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int BK = Design<__nv_bfloat16>::BK;
+  const int cp = padded(c);
+  CUtensorMap maps[4];
+  const int err = c % 8 ? prepare<__nv_bfloat16, 1, 1>(fn, maps, query, key, xf, lf,
+                                                       static_cast<uint8_t*>(scratch),
+                                                       bf16_scratch(b, hw, n, c, lf != nullptr),
+                                                       b, hw, n, c, cp, BK, s)
+                        : encode_inputs(fn, maps, query, key, xf, lf, b, hw, n, c, BK);
+  if (err) return err;
+  return launch_wide<__nv_bfloat16>(maps, lf != nullptr, out_x, out_l, vis, nullptr, b, hw, n, c,
+                                    cp, n_refs, s);
+}
+
+// Bytes of scratch one f32 call with c <= 128 needs; 0 for a shape it does
+// not take.
 size_t fsv_flash_ref_attention_sm90_f32_scratch_bytes(int b, int hw, int n, int c, int n_refs,
                                                       int has_lf) {
-  if (!valid_shape(b, hw, n, c, n_refs)) return 0;
-  return scratch_layout(b, hw, n, c, has_lf != 0).total;
+  using D = Design<float>;
+  if (!narrow_shape(b, hw, n, c, n_refs)) return 0;
+  const int cp = padded(c);
+  return scratch_layout(D::QP, D::VP, b, hw, n, cp, has_lf != 0,
+                        narrow_acc_floats(b, hw, cp, has_lf != 0))
+      .total;
 }
 
-// As fsv_flash_ref_attention_sm90, with f32 inputs and outputs, and scratch:
-// the bytes fsv_flash_ref_attention_sm90_f32_scratch_bytes gives, 256-byte
-// aligned.  Launches the split pre-pass and the attention.
+// f32, c <= 128: the split pre-pass (zero-padding c to a multiple of 8),
+// then the narrow walk.
 int fsv_flash_ref_attention_sm90_f32(const void* query, const void* key, const void* xf,
                                      const void* lf, void* scratch, void* out_x, void* out_l,
                                      void* vis, int b, int hw, int n, int c, int n_refs,
                                      void* stream) {
   using D = Design<float>;
-  if (!valid_shape(b, hw, n, c, n_refs)) return (int)cudaErrorInvalidValue;
+  if (!narrow_shape(b, hw, n, c, n_refs)) return (int)cudaErrorInvalidValue;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -1;
-  const Scratch sc = scratch_layout(b, hw, n, c, lf != nullptr);
-  uint8_t* base = static_cast<uint8_t*>(scratch);
-  void *qp = base + sc.q, *kp = base + sc.k, *xp = base + sc.x, *lp = base + sc.l;
-  CUtensorMap maps[4];
-  if (!encode(fn, &maps[0], qp, D::QP * b, hw, c, BQ) ||
-      !encode(fn, &maps[1], kp, D::QP * b, n, c, D::BK) ||
-      !encode(fn, &maps[2], xp, D::VP * b, n, c, D::BK) ||
-      !encode(fn, &maps[3], lf ? lp : xp, D::VP * b, n, c, D::BK))
-    return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t qe = (size_t)b * hw * c, ke = (size_t)b * n * c;
-  cudaError_t err = split<D::QP>(query, qp, qe, s);
-  if (err == cudaSuccess) err = split<D::QP>(key, kp, ke, s);
-  if (err == cudaSuccess) err = split<D::VP>(xf, xp, ke, s);
-  if (err == cudaSuccess && lf) err = split<D::VP>(lf, lp, ke, s);
-  if (err != cudaSuccess) return (int)err;
-  return launch_for<float>(maps, lf != nullptr, out_x, out_l, vis, base + sc.acc, b, hw, n, c,
+  const int cp = padded(c);
+  const Scratch sc = scratch_layout(D::QP, D::VP, b, hw, n, cp, lf != nullptr,
+                                    narrow_acc_floats(b, hw, cp, lf != nullptr));
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  CUtensorMap maps[4];
+  const int err = prepare<float, D::QP, D::VP>(fn, maps, query, key, xf, lf, base, sc, b, hw, n,
+                                               c, cp, D::BK, s);
+  if (err) return err;
+  return launch_for<float>(maps, lf != nullptr, out_x, out_l, vis, base + sc.acc, b, hw, n, c, cp,
                            n_refs, s);
+}
+
+// Bytes of scratch one f32 call with 128 < c <= 512 needs; 0 for a shape
+// it does not take.
+size_t fsv_flash_ref_attention_sm90_wide_f32_scratch_bytes(int b, int hw, int n, int c,
+                                                           int n_refs, int has_lf) {
+  using D = Design<float>;
+  if (!wide_shape(b, hw, n, c, n_refs)) return 0;
+  const int cp = padded(c);
+  return scratch_layout(D::QP, D::VP, b, hw, n, cp, has_lf != 0,
+                        wide_acc_floats(b, hw, cp, has_lf != 0))
+      .total;
+}
+
+// f32, 128 < c <= 512: the split pre-pass, then the wide walk.
+int fsv_flash_ref_attention_sm90_wide_f32(const void* query, const void* key, const void* xf,
+                                          const void* lf, void* scratch, void* out_x,
+                                          void* out_l, void* vis, int b, int hw, int n, int c,
+                                          int n_refs, void* stream) {
+  using D = Design<float>;
+  if (!wide_shape(b, hw, n, c, n_refs)) return (int)cudaErrorInvalidValue;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int cp = padded(c);
+  const Scratch sc = scratch_layout(D::QP, D::VP, b, hw, n, cp, lf != nullptr,
+                                    wide_acc_floats(b, hw, cp, lf != nullptr));
+  uint8_t* base = static_cast<uint8_t*>(scratch);
+  CUtensorMap maps[4];
+  const int err = prepare<float, D::QP, D::VP>(fn, maps, query, key, xf, lf, base, sc, b, hw, n,
+                                               c, cp, D::BK, s);
+  if (err) return err;
+  return launch_wide<float>(maps, lf != nullptr, out_x, out_l, vis, base + sc.acc, b, hw, n, c, cp,
+                            n_refs, s);
 }
 
 }  // extern "C"

@@ -71,6 +71,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Waits until at most N of this warpgroup's committed wgmma groups are pending.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Registers an async wgmma reads or writes: pinned at this point for the
 // compiler, so it neither reuses nor reads them before the wait.
 template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {

@@ -9,12 +9,12 @@ serving caches (`encode_reference` for K = 1, `encode_reference_multi` for
 K > 1), the VAE bottleneck (`use_kld`), reference labels concatenated to the
 reference images (`use_label_ref='concat'`) beside the multiplied default,
 and the face-refinement generator (`for_face`, `forward_face`).  The K > 1
-attention follows the JAX package's rule: at eval it runs kernel B1
-(ops/attention_kernel.py; on the card the hand-written CUDA kernel, on the
-CPU its plain version); in train mode, which B1 cannot serve because it has
-no backward, it runs `chunked_ref_attention` (ops/attention_kernel.py, B1's
-plain version), the differentiable query-chunked softmax of the JAX
-module's non-flash branch.
+attention follows the JAX package's rule: at eval with c <= 512 channels it
+runs kernel B1 (ops/attention_kernel.py; on the card the hand-written CUDA
+kernels, on the CPU their plain version); in train mode, which B1 cannot
+serve because it has no backward, and at c > 512, it runs
+`chunked_ref_attention` (ops/attention_kernel.py, B1's plain version), the
+differentiable query-chunked softmax of the JAX module's non-flash branch.
 
 `forward` follows `module.training`.  In train mode batch norms use batch
 statistics and every spectral-norm layer advances its u / v once per call,
@@ -58,7 +58,8 @@ from fsvid2vid_tpu_torch.models.flow_generator import FlowGenerator
 from fsvid2vid_tpu_torch.models.layers import (
     SNLinear, SpadeConv2d, SpadeResnetBlock)
 from fsvid2vid_tpu_torch.models.remat import remat
-from fsvid2vid_tpu_torch.ops.attention_kernel import chunked_ref_attention, flash_ref_attention
+from fsvid2vid_tpu_torch.ops.attention_kernel import (MAX_C, chunked_ref_attention,
+                                                       flash_ref_attention)
 from fsvid2vid_tpu_torch.ops.image_ops import adaptive_avg_pool, leaky_relu, upsample_nearest
 from fsvid2vid_tpu_torch.ops.warp import flow_warp
 
@@ -258,7 +259,8 @@ class FewShotGenerator(nn.Module):
 
         lf = tokens(x_label, bk) if x_label is not None else None
         args = (tokens(query, b), tokens(key, bk), tokens(x, bk), lf, n)
-        if self.training:
+        if self.training or c > MAX_C:
+            # JAX's non-flash branch: train mode, and c beyond its flash limit
             out_x, out_l, vis = chunked_ref_attention(*args, self.atn_chunk_elems)
         else:
             out_x, out_l, vis = self.attention(*args)

@@ -9,20 +9,32 @@ With N = n_refs * hw_key keys:
   out_l[b,q,:] = the same weights applied to lf (optional)
   vis[b,q,r]   = the softmax mass on the keys of reference r
 
-Three hand-written kernels compute it on the card; `route_for` picks one
-from where the inputs lie, their dtype and their channel count, before any
-launch:
+On the card the tensor-core kernels of csrc/flash_ref_attention_sm90.cu
+compute it for every channel count 1 <= c <= MAX_C = 512, the JAX
+generator's limit for its Pallas kernel; `route_for` picks one from where
+the inputs lie, their dtype and their channel count, before any launch:
 
-  CPU tensor                          -> the plain version
-  CUDA, bf16, c % 8 == 0, c <= 128    -> "sm90": csrc/flash_ref_attention_sm90.cu
-                                         (wgmma, TMA, warp specialisation)
-  CUDA, f32, c % 8 == 0, c <= 128     -> "sm90_f32": the same source's f32
-                                         instance (split-bf16 products)
-  CUDA, c % 8 != 0                    -> "cuda_core": csrc/flash_ref_attention.cu
+  CPU tensor                              -> the plain version
+  CUDA, c <= 128, c % 8 == 0              -> "sm90" (bf16) / "sm90_f32" (f32):
+                                             the narrow walk (wgmma, TMA,
+                                             warp specialisation; f32 on
+                                             split-bf16 products)
+  CUDA, c <= 128, c % 8 != 0              -> "sm90_ragged" / "sm90_ragged_f32":
+                                             the same walk on the inputs
+                                             zero-padded to a multiple of 8
+                                             channels by a pre-pass
+  CUDA, 128 < c <= 512                    -> "sm90_wide" / "sm90_wide_f32": the
+                                             wide walk (value slices along
+                                             the grid, QK^T streamed in
+                                             64-channel chunks)
 
+csrc/flash_ref_attention.cu, the CUDA-core design the tensor-core routes
+replaced ("cuda_core", c <= 128), is no route's kernel any more; it stays
+for comparison (`_launch_cuda_core`).  The generator sends c > 512 to
+`chunked_ref_attention`, as the JAX generator sends it to its XLA branch.
 Each is built with nvcc for sm_90a on first use into fsvid2vid_tpu_torch/build/
 and loaded with ctypes (ops/cuda_build.py).  A CUDA call launches the routed
-kernel or raises: nothing falls back to the other kernel or to the plain
+kernel or raises: nothing falls back to another kernel or to the plain
 version.  The dispatch is the torch operator fsv::flash_ref_attention,
 registered when this module is imported (its fake implementation gives the
 output shapes and launches nothing), so that torch.export traces through it
@@ -31,40 +43,79 @@ and a saved program calls it by name (inference/serve.py).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from fsvid2vid_tpu_torch.ops.cuda_build import CudaLibrary
 
-MAX_C = 128            # channels the kernels take (csrc MAX_C)
+MAX_C = 512            # channels B1 takes (csrc MAX_C; the JAX generator's flash limit)
+NARROW_MAX_C = 128     # the narrow walk's (csrc NARROW_MAX_C) and the CUDA-core kernel's
 SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
 
-# the bf16 sm90 kernel's shared memory (csrc/flash_ref_attention_sm90.cu
-# smem_bytes<bf16>): 1024 bytes of alignment slack, a 128-query tile and 3 stages
-# of 64-key tiles [K | xf | lf] in 64-channel boxes, 7 mbarriers, and a
-# (128, n_refs) table of float2
+
+def padded_c(c: int) -> int:
+    """c rounded up to a multiple of 8: the channels the tensor maps see
+    (TMA rows are 16-byte strided)."""
+    return -(-c // 8) * 8
+
+
+# the narrow bf16 walk's shared memory (csrc/flash_ref_attention_sm90.cu
+# smem_bytes<bf16>) at cp = padded_c(c) channels: 1024 bytes of alignment
+# slack, a 128-query tile and 3 stages of 64-key tiles [K | xf | lf] in
+# 64-channel boxes, 7 mbarriers, and a (128, n_refs) table of float2
 _SM90_STAGES = 3
 
 
 def sm90_smem_bytes(c: int, n_refs: int, has_lf: bool) -> int:
-    boxes = 1 if c <= 64 else 2
+    boxes = 1 if padded_c(c) <= 64 else 2
     stage = boxes * 64 * 128 * (3 if has_lf else 2)
     return (1024 + boxes * 128 * 128 + _SM90_STAGES * stage + 8 * (2 * _SM90_STAGES + 1)
             + 128 * n_refs * 8)
 
 
-# the f32 one's (smem_bytes<float>): the 128-query tile in 3 bf16 parts, 2
-# stages of 32-key tiles [K in 3 parts | xf and lf in 2 parts], 5 mbarriers
-# and the same table
+# the narrow f32 walk's (smem_bytes<float>): the 128-query tile in 3 bf16
+# parts, 2 stages of 32-key tiles [K in 3 parts | xf and lf in 2 parts], 5
+# mbarriers and the same table
 _SM90_F32_STAGES = 2
 
 
 def sm90_f32_smem_bytes(c: int, n_refs: int, has_lf: bool) -> int:
-    boxes = 1 if c <= 64 else 2
+    boxes = 1 if padded_c(c) <= 64 else 2
     stage = (3 * boxes + 2 * boxes * (2 if has_lf else 1)) * 32 * 128
     return (1024 + 3 * boxes * 128 * 128 + _SM90_F32_STAGES * stage
             + 8 * (2 * _SM90_F32_STAGES + 1) + 128 * n_refs * 8)
+
+
+# the wide walk's (wide_smem_bytes<T>), the same for every c and has_lf: a
+# ring of chunks [query box | key box] (their parts), a ring of value tiles
+# of 4 64-channel boxes (their parts), full / empty mbarriers of both, the
+# table.  bf16: 4 chunks of 16 + 8 KB, 2 value tiles of 32 KB (64 keys);
+# f32: 3 chunks of 3 x (16 + 4) KB, 1 value tile of 2 x 16 KB (32 keys).
+WIDE_VALUE_BOXES = 4   # value channels per block: 4 boxes of 64 (csrc WIDE_VB)
+
+
+def _wide_smem_bytes(parts_q, parts_v, keys, qk_stages, v_stages, n_refs):
+    key_box = keys * 128
+    return (1024 + qk_stages * parts_q * (128 * 128 + key_box)
+            + v_stages * parts_v * WIDE_VALUE_BOXES * key_box
+            + 16 * (qk_stages + v_stages) + 128 * n_refs * 8)
+
+
+def sm90_wide_smem_bytes(c: int, n_refs: int, has_lf: bool) -> int:
+    return _wide_smem_bytes(1, 1, 64, 4, 2, n_refs)
+
+
+def sm90_wide_f32_smem_bytes(c: int, n_refs: int, has_lf: bool) -> int:
+    return _wide_smem_bytes(3, 2, 32, 3, 1, n_refs)
+
+
+def wide_slices(c: int, has_lf: bool) -> int:
+    """The wide walk's value slices (blocks along the grid's z, each
+    recomputing QK^T): the 64-channel boxes of [xf | lf] in fours."""
+    boxes = -(-padded_c(c) // 64) * (2 if has_lf else 1)
+    return -(-boxes // WIDE_VALUE_BOXES)
 
 
 def _declare(lib):
@@ -78,30 +129,38 @@ def _declare(lib):
 
 
 def _declare_sm90(lib):
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.fsv_flash_ref_attention_sm90
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.fsv_flash_ref_attention_sm90_f32
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    scratch = lib.fsv_flash_ref_attention_sm90_f32_scratch_bytes
-    scratch.argtypes = [ctypes.c_int] * 6
-    scratch.restype = ctypes.c_size_t
+    fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    fn.restype = i32
+    for route in ("sm90_f32", "sm90_ragged", "sm90_wide", "sm90_wide_f32"):
+        fn = getattr(lib, f"fsv_flash_ref_attention_{route}")
+        fn.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
+        fn.restype = i32
+    for what in ("sm90_f32", "sm90_padded", "sm90_wide_f32"):
+        fn = getattr(lib, f"fsv_flash_ref_attention_{what}_scratch_bytes")
+        fn.argtypes = [i32] * 6
+        fn.restype = ctypes.c_size_t
 
 
-KERNEL = CudaLibrary("flash_ref_attention", _declare)
-KERNEL_SM90 = CudaLibrary("flash_ref_attention_sm90", _declare_sm90)   # both sm90 routes
+KERNEL = CudaLibrary("flash_ref_attention", _declare)   # the CUDA-core design
+KERNEL_SM90 = CudaLibrary("flash_ref_attention_sm90", _declare_sm90)   # every route
 
 
 def route_for(device_type: str, dtype: torch.dtype, c: int) -> str:
-    """The rule: "plain", "sm90", "sm90_f32" or "cuda_core" for inputs on
-    `device_type` of `dtype` with `c` channels.  f32 reaches the tensor cores
-    only as split-bf16 products (TF32 alone would not hold the f32 checks)."""
+    """The rule: "plain" on the CPU; on the card the tensor-core route for
+    `dtype` and `c` channels (module docstring).  f32 reaches the tensor
+    cores only as split-bf16 products (TF32 alone would not hold the f32
+    checks).  c outside 1..MAX_C is refused by the launch's check."""
     if device_type == "cpu":
         return "plain"
-    if c % 8 == 0 and c <= MAX_C:
-        return "sm90" if dtype == torch.bfloat16 else "sm90_f32"
-    return "cuda_core"
+    if c > NARROW_MAX_C:
+        route = "sm90_wide"
+    elif c % 8:
+        route = "sm90_ragged"
+    else:
+        route = "sm90"
+    return route if dtype == torch.bfloat16 else route + "_f32"
 
 
 def chunked_ref_attention(query, key, xf, lf, n_refs: int, chunk_elems: int = 1 << 23):
@@ -171,18 +230,39 @@ def _check(query, key, xf, lf, n_refs):
                          f"n_refs={n_refs}")
     if not 1 <= c <= MAX_C:
         raise ValueError(f"flash_ref_attention: c={c} outside 1..{MAX_C} "
-                         "(the kernel stages c channels in shared memory)")
+                         "(the JAX generator's flash limit; wider attention takes "
+                         "chunked_ref_attention)")
 
 
-def _check_tensor_core(route, dtype, smem_bytes, query, key, xf, lf, n_refs):
-    """What a tensor-core kernel needs beyond _check: its dtype, c % 8 == 0
-    (TMA rows are 16-byte strided), 16-byte aligned tensors, and its shared
-    memory."""
+# The tensor-core routes: dtype, the channel counts each takes, its shared
+# memory, and the C function that sizes its scratch (None: it takes none).
+# Route r launches fsv_flash_ref_attention_<r>; the f32 narrow entry takes
+# both f32 narrow routes.
+_TC_ROUTES = {
+    "sm90": (torch.bfloat16, lambda c: c <= NARROW_MAX_C and c % 8 == 0, sm90_smem_bytes,
+             None),
+    "sm90_f32": (torch.float32, lambda c: c <= NARROW_MAX_C and c % 8 == 0,
+                 sm90_f32_smem_bytes, "sm90_f32"),
+    "sm90_ragged": (torch.bfloat16, lambda c: c <= NARROW_MAX_C and c % 8, sm90_smem_bytes,
+                    "sm90_padded"),
+    "sm90_ragged_f32": (torch.float32, lambda c: c <= NARROW_MAX_C and c % 8,
+                        sm90_f32_smem_bytes, "sm90_f32"),
+    "sm90_wide": (torch.bfloat16, lambda c: c > NARROW_MAX_C, sm90_wide_smem_bytes,
+                  "sm90_padded"),
+    "sm90_wide_f32": (torch.float32, lambda c: c > NARROW_MAX_C, sm90_wide_f32_smem_bytes,
+                      "sm90_wide_f32"),
+}
+
+
+def _check_tensor_core(route, query, key, xf, lf, n_refs):
+    """What a tensor-core route needs beyond _check: its dtype, its channel
+    counts, 16-byte aligned tensors, and its shared memory."""
     _check(query, key, xf, lf, n_refs)
+    dtype, takes, smem_bytes, _ = _TC_ROUTES[route]
     c = query.shape[2]
-    if query.dtype != dtype or c % 8:
-        raise ValueError(f"flash_ref_attention {route}: needs {dtype} and c % 8 == 0, "
-                         f"got {query.dtype} and c={c}")
+    if query.dtype != dtype or not takes(c):
+        raise ValueError(f"flash_ref_attention {route}: does not take {query.dtype} "
+                         f"with c={c} (route_for gives {route_for('cuda', query.dtype, c)})")
     tensors = [query, key, xf] + ([lf] if lf is not None else [])
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"flash_ref_attention {route}: tensors must be 16-byte aligned")
@@ -190,15 +270,6 @@ def _check_tensor_core(route, dtype, smem_bytes, query, key, xf, lf, n_refs):
     if smem > SMEM_LIMIT:
         raise ValueError(f"flash_ref_attention {route}: n_refs={n_refs} needs {smem} "
                          f"bytes of shared memory (limit {SMEM_LIMIT})")
-
-
-def _check_sm90(query, key, xf, lf, n_refs):
-    _check_tensor_core("sm90", torch.bfloat16, sm90_smem_bytes, query, key, xf, lf, n_refs)
-
-
-def _check_sm90_f32(query, key, xf, lf, n_refs):
-    _check_tensor_core("sm90_f32", torch.float32, sm90_f32_smem_bytes, query, key, xf, lf,
-                       n_refs)
 
 
 def _outputs(query, lf, n_refs):
@@ -222,50 +293,40 @@ def _raise_on(err, route):
     raise RuntimeError(f"flash_ref_attention ({route}): kernel launch failed: {what}")
 
 
-def _launch_sm90(query, key, xf, lf, n_refs):
-    _check_sm90(query, key, xf, lf, n_refs)
-    lib = KERNEL_SM90.load()
-    b, hw, c = query.shape
-    out_x, out_l, vis = _outputs(query, lf, n_refs)
-    with torch.cuda.device(query.device):
-        err = lib.fsv_flash_ref_attention_sm90(
-            query.data_ptr(), key.data_ptr(), xf.data_ptr(),
-            lf.data_ptr() if lf is not None else None,
-            out_x.data_ptr(), out_l.data_ptr() if out_l is not None else None,
-            vis.data_ptr(), b, hw, key.shape[1], c, n_refs,
-            torch.cuda.current_stream(query.device).cuda_stream)
-    _raise_on(err, "sm90")
-    _count("sm90")
-    return out_x, out_l, vis
-
-
-def _launch_sm90_f32(query, key, xf, lf, n_refs):
-    """The f32 tensor-core kernel; its split pre-pass writes the bf16 parts
-    of the inputs into a scratch tensor allocated here."""
-    _check_sm90_f32(query, key, xf, lf, n_refs)
+def _launch_tc(route, query, key, xf, lf, n_refs):
+    """A tensor-core route: its pre-pass, where it has one, writes the
+    inputs' bf16 parts or zero-padded copies into scratch allocated here."""
+    _check_tensor_core(route, query, key, xf, lf, n_refs)
     lib = KERNEL_SM90.load()
     b, hw, c = query.shape
     n = key.shape[1]
     has_lf = lf is not None
-    scratch = torch.empty(
-        lib.fsv_flash_ref_attention_sm90_f32_scratch_bytes(b, hw, n, c, n_refs, int(has_lf)),
-        dtype=torch.uint8, device=query.device)
     out_x, out_l, vis = _outputs(query, lf, n_refs)
+    args = [query.data_ptr(), key.data_ptr(), xf.data_ptr(), lf.data_ptr() if has_lf else None]
+    sizing = _TC_ROUTES[route][3]
+    if sizing is not None:
+        nbytes = getattr(lib, f"fsv_flash_ref_attention_{sizing}_scratch_bytes")(
+            b, hw, n, c, n_refs, int(has_lf))
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=query.device)
+        args.append(scratch.data_ptr() if nbytes else None)
+    entry = route.replace("sm90_ragged_f32", "sm90_f32")   # one entry takes every f32 c <= 128
     with torch.cuda.device(query.device):
-        err = lib.fsv_flash_ref_attention_sm90_f32(
-            query.data_ptr(), key.data_ptr(), xf.data_ptr(),
-            lf.data_ptr() if has_lf else None, scratch.data_ptr(),
-            out_x.data_ptr(), out_l.data_ptr() if has_lf else None,
+        err = getattr(lib, f"fsv_flash_ref_attention_{entry}")(
+            *args, out_x.data_ptr(), out_l.data_ptr() if has_lf else None,
             vis.data_ptr(), b, hw, n, c, n_refs,
             torch.cuda.current_stream(query.device).cuda_stream)
-    _raise_on(err, "sm90_f32")
-    _count("sm90_f32")
+    _raise_on(err, route)
+    _count(route)
     return out_x, out_l, vis
 
 
 def _launch_cuda_core(query, key, xf, lf, n_refs):
-    """The CUDA-core kernel: f32 and bf16 with c % 8 != 0."""
+    """The CUDA-core kernel, f32 and bf16, c <= 128: the previous design,
+    launched only to compare with."""
     _check(query, key, xf, lf, n_refs)
+    if query.shape[2] > NARROW_MAX_C:
+        raise ValueError(f"flash_ref_attention cuda_core: c={query.shape[2]} outside "
+                         f"1..{NARROW_MAX_C} (the kernel stages c channels in shared memory)")
     lib = KERNEL.load()
     b, hw, c = query.shape
     smem = lib.fsv_flash_ref_attention_smem_bytes(c, n_refs, lf is not None)
@@ -286,7 +347,7 @@ def _launch_cuda_core(query, key, xf, lf, n_refs):
     return out_x, out_l, vis
 
 
-_LAUNCH = {"sm90": _launch_sm90, "sm90_f32": _launch_sm90_f32,
+_LAUNCH = {**{route: functools.partial(_launch_tc, route) for route in _TC_ROUTES},
            "cuda_core": _launch_cuda_core}
 
 

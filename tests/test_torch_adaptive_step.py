@@ -25,18 +25,15 @@ against the JAX package's, on the CPU in f32 at tiny sizes (ngf 4, ndf 4,
     them) within 4 lr of JAX's, the others bitwise unchanged, the adaptive
     D's encoder and fc moved;
   * a mid-epoch resume bitwise equal to the run without the interruption;
-  * the K = 1 serving export, whose cache carries the generated conv
-    weights: frames against the pipeline's, 1e-5;
-  * `cli.train --adaptive_conv --netD_subarch adaptive` and `cli.test
-    --finetune` in-process on the synthetic face writer, the test CLI
-    taking the discriminator's architecture from the run's config.json.
+  * the K = 1 serving export and the CLIs, in
+    tests/test_torch_adaptive_cli.py (a file of their own, so that they run
+    on another pytest-xdist worker than the JAX steps here).
 
 The discriminators' logits are spread past the hinge's kinks
 (tests/test_torch_street_step.py `redrawn_state`).  Each JAX program is
 compiled once per module.
 """
 import dataclasses
-import os
 
 import jax
 import jax.numpy as jnp
@@ -50,19 +47,14 @@ from fsvid2vid_tpu.models.vgg import Vgg19Features
 from fsvid2vid_tpu.training import state as jstate
 from fsvid2vid_tpu.training import step as jstep
 from fsvid2vid_tpu_torch import config as tconfig
-from fsvid2vid_tpu_torch.cli import test as cli_test
-from fsvid2vid_tpu_torch.cli import train as cli_train
 from fsvid2vid_tpu_torch.inference import finetune as tft
-from fsvid2vid_tpu_torch.inference.pipeline import InferencePipeline
-from fsvid2vid_tpu_torch.inference.serve import export_serving, load_serving
 from fsvid2vid_tpu_torch.training import checkpoint as ckpt
 from fsvid2vid_tpu_torch.training import state as tstate
 from fsvid2vid_tpu_torch.training import step as tstep
 from fsvid2vid_tpu_torch.utils.convert import (
     discriminator_state_dict_from_jax, state_dict_from_jax, vgg_state_dict_from_jax)
-from tests.test_torch_adaptive_conv import make_generators
 from tests.test_torch_checkpoint import assert_equal_state, run, tiny_cfg
-from tests.test_torch_data import few_threads, write_face_dataset  # noqa: F401 (autouse)
+from tests.test_torch_data import few_threads  # noqa: F401 (autouse)
 from tests.test_torch_layers import to_numpy
 from tests.test_torch_pose_losses import pose_label
 from tests.test_torch_street_step import redrawn_state
@@ -274,73 +266,3 @@ def test_resume_mid_epoch_is_bitwise_equal(tmp_path):
     resumed = run(tiny_cfg(tmp_path / "b", continue_train=True, **kw))
     assert resumed.state.step == whole.state.step == 3 + 6
     assert_equal_state(resumed.state, whole.state)
-
-
-def test_k1_serving_export_carries_the_conv_weights(tmp_path):
-    rng = np.random.RandomState(7)
-    _, _, tcfg, _, _, g = make_generators(1)     # numpy-drawn, activations of order one
-    tcfg = tcfg.replace(batch_size=1, is_train=False)
-    mk = lambda *s: rng.randn(*s).astype(np.float32)
-    ref_labels, ref_images = mk(1, 1, SIZE, SIZE, 1), np.tanh(mk(1, 1, SIZE, SIZE, 3))
-    frames = [mk(1, SIZE, SIZE, 1) for _ in range(3)]
-    pipe = InferencePipeline(tcfg, g)
-    pipe.reset(ref_labels, ref_images, frames[0])
-    assert len(pipe.cache["conv_weights"]) == 2
-    want = [pipe.step(lbl)["fake_image"].numpy() for lbl in frames]
-    export_serving(tcfg, g, str(tmp_path / "serve"), dtype=torch.float32)
-    session = load_serving(str(tmp_path / "serve"), device="cpu")
-    session.reset(ref_labels, ref_images, frames[0])
-    w, bias = session.cache["conv_weights"][1][2]      # level 1's conv_s
-    assert tuple(w.shape) == (1, 8, 16, 1, 1) and tuple(bias.shape) == (1, 8)
-    for t, lbl in enumerate(frames):
-        np.testing.assert_allclose(session.step(lbl).numpy(), want[t], atol=SERVE_ATOL,
-                                   err_msg=f"frame {t}")
-    assert np.std(want) > 0.05
-
-
-FLAGS = ["--dataset_mode", "fewshot_face", "--adaptive_spade", "--warp_ref",
-         "--spade_combine", "--ngf", "4", "--ndf", "4", "--fineSize", "32",
-         "--loadSize", "32", "--n_downsample_G", "3", "--n_adaptive_layers", "2",
-         "--no_vgg_loss", "--adaptive_conv"]
-
-
-def test_cli_train_and_finetune(tmp_path, monkeypatch):
-    """Two epochs of `cli.train --adaptive_conv --netD_subarch adaptive`
-    (the second temporal), then `cli.test --finetune` from `latest` without
-    --netD_subarch: the adaptive D comes from config.json, restored and
-    adapted with G, and 2 frames written."""
-    data = write_face_dataset(str(tmp_path / "face"), n_frames=6, size=64)
-    ckpts = str(tmp_path / "ckpt")
-    run_ = cli_train.main(["--name", "face", "--dataroot", data, "--checkpoints_dir", ckpts,
-                           "--batchSize", "2", "--niter", "2", "--niter_decay", "0",
-                           "--niter_single", "1", "--no_flow_gt", "--steps_per_epoch", "2",
-                           "--num_workers", "2", "--display_freq", "2", "--print_freq", "2",
-                           "--device", "cpu", "--netD_subarch", "adaptive"] + FLAGS)
-    assert sorted(run_.trainer.epoch_metrics) == [1, 2]
-    for metrics in run_.trainer.epoch_metrics.values():
-        assert all(np.isfinite(v) for v in metrics.values())
-    stored = ckpt.load(run_.cfg)["networks"]["D"]
-    assert "discriminator_0.encoder_0.weight" in stored
-
-    real, seen = tft.finetune, {}
-
-    def checked(cfg, models, *args, **kw):
-        seen["subarch"] = cfg.netD_subarch
-        seen["restored"] = all(torch.equal(v, stored[k])
-                               for k, v in models.netD.state_dict().items())
-        before = {n: p.detach().clone() for n, p in models.netD.named_parameters()}
-        out = real(cfg, models, *args, **kw)
-        seen["d_moved"] = all(not torch.equal(p, before[n])
-                              for n, p in models.netD.named_parameters())
-        return out
-    monkeypatch.setattr(tft, "finetune", checked)
-    res = cli_test.main(["--name", "face", "--dataroot", data, "--checkpoints_dir", ckpts,
-                         "--results_dir", str(tmp_path / "results"), "--device", "cpu",
-                         "--how_many", "2", "--finetune",
-                         "--seq_path", os.path.join(data, "test_images", "0001/"),
-                         "--ref_img_path", os.path.join(data, "test_images", "0002/")]
-                        + FLAGS)
-    assert seen == {"subarch": "adaptive", "restored": True, "d_moved": True}
-    assert len(res.finetune_losses) == 100 and res.nonfinite_frames == []
-    images = os.listdir(os.path.join(res.web_dir, "images"))
-    assert sum("synthesized" in i for i in images) == 2

@@ -40,8 +40,8 @@ LOG2E = 1.4426950408889634
     ("cuda", torch.bfloat16, 40, "sm90"),
     ("cuda", torch.float32, 128, "sm90_f32"),
     ("cuda", torch.float32, 40, "sm90_f32"),
-    ("cuda", torch.float32, 36, "cuda_core"),
-    ("cuda", torch.bfloat16, 20, "cuda_core"),
+    ("cuda", torch.float32, 36, "sm90_ragged_f32"),
+    ("cuda", torch.bfloat16, 20, "sm90_ragged"),
 ])
 def test_route_rule(device_type, dtype, c, route):
     assert ak.route_for(device_type, dtype, c) == route
@@ -60,10 +60,10 @@ def test_sm90_input_check_raises(case):
     q, k, xf, lf, n_refs = _bf16_inputs()
     if case == "f32":
         q, k, xf, lf = (t.float() for t in (q, k, xf, lf))
-    elif case == "c_not_multiple_of_8":
+    elif case == "c_not_multiple_of_8":   # the ragged route's
         q, k, xf, lf, n_refs = _bf16_inputs(c=20)
     elif case == "c_too_wide":
-        q, k, xf, lf, n_refs = _bf16_inputs(c=ak.MAX_C + 8)
+        q, k, xf, lf, n_refs = _bf16_inputs(c=ak.NARROW_MAX_C + 8)   # the wide route's
     elif case == "misaligned":     # a contiguous view 2 bytes into its storage
         xf = torch.zeros(k.numel() + 1, dtype=torch.bfloat16)[1:].view(k.shape)
     elif case == "too_many_refs":  # the (128, n_refs) mass table overflows
@@ -71,12 +71,12 @@ def test_sm90_input_check_raises(case):
     elif case == "shape":
         lf = lf[:, :-1].contiguous()
     with pytest.raises(ValueError):
-        ak._check_sm90(q, k, xf, lf, n_refs)
+        ak._check_tensor_core("sm90", q, k, xf, lf, n_refs)
 
 
 def test_sm90_check_takes_the_serving_shape():
     q, k, xf, lf, n_refs = _bf16_inputs(hw=16, n_refs=8, c=128)
-    ak._check_sm90(q, k, xf, lf, n_refs)
+    ak._check_tensor_core("sm90", q, k, xf, lf, n_refs)
     assert ak.sm90_smem_bytes(128, 8, True) <= ak.SMEM_LIMIT
 
 

@@ -59,9 +59,9 @@ def test_split_parts_carry_f32():
     (torch.float32, 128, "sm90_f32"),
     (torch.float32, 40, "sm90_f32"),
     (torch.float32, 8, "sm90_f32"),
-    (torch.float32, 36, "cuda_core"),
-    (torch.float32, 136, "cuda_core"),
-    (torch.bfloat16, 36, "cuda_core"),
+    (torch.float32, 36, "sm90_ragged_f32"),
+    (torch.float32, 136, "sm90_wide_f32"),
+    (torch.bfloat16, 36, "sm90_ragged"),
     (torch.bfloat16, 128, "sm90"),
 ])
 def test_f32_route_rule(dtype, c, route):
@@ -82,10 +82,10 @@ def test_sm90_f32_input_check_raises(case):
     q, k, xf, lf, n_refs = _f32_inputs()
     if case == "bf16":
         q, k, xf, lf = (t.bfloat16() for t in (q, k, xf, lf))
-    elif case == "c_not_multiple_of_8":
+    elif case == "c_not_multiple_of_8":   # the ragged route's
         q, k, xf, lf, n_refs = _f32_inputs(c=36)
     elif case == "c_too_wide":
-        q, k, xf, lf, n_refs = _f32_inputs(c=ak.MAX_C + 8)
+        q, k, xf, lf, n_refs = _f32_inputs(c=ak.NARROW_MAX_C + 8)   # the wide route's
     elif case == "misaligned":     # a contiguous view 4 bytes into its storage
         xf = torch.zeros(k.numel() + 1)[1:].view(k.shape)
     elif case == "too_many_refs":  # the (128, n_refs) mass table overflows
@@ -93,14 +93,14 @@ def test_sm90_f32_input_check_raises(case):
     elif case == "shape":
         lf = lf[:, :-1].contiguous()
     with pytest.raises(ValueError):
-        ak._check_sm90_f32(q, k, xf, lf, n_refs)
+        ak._check_tensor_core("sm90_f32", q, k, xf, lf, n_refs)
 
 
 def test_sm90_f32_check_takes_the_serving_shape():
     """Face 512 px at K = 8 (c = 128 with lf) fits, and so do 17 references;
     the shared memory is the 96 KB query tile, two 56 KB stages and the table."""
     q, k, xf, lf, n_refs = _f32_inputs(hw=16, n_refs=8, c=128)
-    ak._check_sm90_f32(q, k, xf, lf, n_refs)
+    ak._check_tensor_core("sm90_f32", q, k, xf, lf, n_refs)
     assert ak.sm90_f32_smem_bytes(128, 8, True) == 1024 + 98304 + 2 * 57344 + 40 + 8192
     assert ak.sm90_f32_smem_bytes(128, 17, True) <= ak.SMEM_LIMIT
     assert ak.sm90_f32_smem_bytes(128, 18, True) > ak.SMEM_LIMIT

@@ -21,12 +21,20 @@ from fsvid2vid_tpu_torch.cli import test as cli_test
 from fsvid2vid_tpu_torch.cli import train as cli_train
 from tests.test_torch_data import (  # noqa: F401 (few_threads: autouse)
     TORCH_THREADS, few_threads, write_face_dataset)
+from tests.torch_workers import time_limit
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--ngf", "4", "--ndf", "4", "--fineSize", "32", "--loadSize", "32",
         "--n_downsample_G", "3", "--n_adaptive_layers", "2", "--no_vgg_loss"]
 FACE = ["--dataset_mode", "fewshot_face", "--adaptive_spade", "--warp_ref",
         "--spade_combine"]
+
+
+@pytest.fixture(autouse=True)
+def _time_limit():
+    """The CLIs run loader threads in-process: a hang fails its test."""
+    with time_limit(600):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -99,7 +99,8 @@ GF_RUNS = {}
 
 def gf_record(refs, case="moved"):
     """A refine_face finetune's record, G's and netGf's, as chip_smoke.py's
-    finetune phase writes it.  "clamped": G's output is +1 everywhere and
+    finetune phase writes it (G's steps counted as stopped where its output
+    passes no gradient to the refined frame, `watch_refined_output`).  "clamped": G's output is +1 everywhere and
     netGf's tanh(3) nowhere +-1, so the refined face, added to the coarse one,
     lies above replace_face_region's clamp at every pixel and netGf gets no
     gradient although its output never saturates.  "gf_cut_off": netGf's
@@ -118,12 +119,14 @@ def gf_record(refs, case="moved"):
             extra.append(models.netGf.conv_img.register_forward_hook(
                 lambda _, __, y: y.detach() + 0 * y))
         before = {k: [p.detach().clone() for p in net.parameters()] for k, net in nets.items()}
-        hooks = {"g": cs.watch_output_layer(torch, models.netG),
-                 "gf": cs.watch_face_output(torch, models.netGf)}
+        # G's watcher in a refine_face run wraps netGf's: installed after it,
+        # removed before it
+        hooks = {"gf": cs.watch_face_output(torch, models.netGf)}
+        hooks["g"] = cs.watch_refined_output(torch, models.netG)
         try:
             _, history = ft.finetune(cfg, models, *refs, seed=5)
         finally:
-            for _, _, unhook in hooks.values():
+            for _, _, unhook in reversed(list(hooks.values())):
                 unhook()
             for h in extra:
                 h.remove()

@@ -16,7 +16,9 @@ adaptive layers, batch 2):
   * step 1 of `train_step` and of `train_step_faithful` from one shared
     state with the same eps (batch `vae_eps`; the faithful step reuses it in
     both generations, as JAX reuses its rng): every loss, G_KLD included,
-    1e-4 relative (tests/test_torch_train_step.py's tolerance);
+    1e-4 relative (tests/test_torch_train_step.py's tolerance), in
+    tests/test_torch_kld_concat_step.py and test_torch_kld_concat_faithful.py
+    (`check_step_one`);
   * use_label_ref='concat,mul' fails in the JAX package and the port
     refuses it by that failure;
   * the serving export of this configuration at K = 2 (z = mu; the
@@ -47,7 +49,7 @@ from fsvid2vid_tpu_torch.models.generator import FewShotGenerator
 from fsvid2vid_tpu_torch.training import step as tstep
 from fsvid2vid_tpu_torch.utils.convert import state_dict_from_jax
 from tests.test_torch_layers import randomize, to_numpy
-from tests.test_torch_train_step import make_shared, port_state, tbatch
+from tests.test_torch_train_step import port_state, tbatch
 
 ATOL = 1e-4
 LOSS_RTOL = 1e-4
@@ -176,13 +178,12 @@ def test_kld_loss_matches_jax():
     assert float(kld_loss(torch.zeros(2, 256), torch.zeros(2, 256))) == 0.0
 
 
-@pytest.fixture(scope="module")
-def shared():
-    return make_shared(**OPTIONS)
-
-
-@pytest.mark.parametrize("name", ["train_step", "train_step_faithful"])
-def test_step_one_losses_match_jax(shared, name):
+def check_step_one(shared, name):
+    """Step 1 of `name` ("train_step" or "train_step_faithful") from the
+    shared state with the same eps, against JAX; each step is checked in a
+    file of its own (tests/test_torch_kld_concat_step.py,
+    tests/test_torch_kld_concat_faithful.py), so that the two JAX step
+    compiles, the longest of this configuration, run on separate workers."""
     eps = np.random.RandomState(6).randn(B, 256).astype(np.float32)
     jbatch = jax.tree_util.tree_map(jnp.asarray, shared.batch)
     flags = (False, False)

@@ -32,6 +32,7 @@ from fsvid2vid_tpu_torch.models import layers as tl
 from fsvid2vid_tpu_torch.models.embedder import LabelEmbedder
 from fsvid2vid_tpu_torch.models.flow_generator import FlowGenerator
 from fsvid2vid_tpu_torch.utils.convert import state_dict_from_jax
+from tests import torch_workers  # noqa: F401 (each xdist worker's share of the cores)
 
 ATOL = 1e-4
 
