@@ -1,9 +1,15 @@
-// FlowNetC correlation cost volume for Hopper (sm_90a), forward only.
+// FlowNetC correlation cost volume for Hopper (sm_90a), forward only, on the
+// CUDA cores: the previous design of kernel B2, no route's kernel.
 //
-// Replaces the Pallas TPU kernel fsvid2vid_tpu/ops/pallas/cost_volume_kernel.py
-// (cost_volume_pallas, body _kernel).  With R = (max_displacement / stride)
-// * stride, D = 2 * (max_displacement / stride) + 1 and dy, dx in
-// {-R, -R + stride, ..., R}:
+// It was the port's first kernel for the Pallas TPU kernel
+// fsvid2vid_tpu/ops/pallas/cost_volume_kernel.py (cost_volume_pallas, body
+// _kernel), then the route of every grid but stride 2 with D <= 25.  The
+// tensor-core kernel csrc/cost_volume_tc.cu now takes every grid, D > 64
+// too, which this one refuses; it stays, built, checked against the plain
+// version and timed in turns beside that kernel wherever it takes the grid
+// (chip_smoke.py, ops/cost_volume.py _launch_cuda_core).  With
+// R = (max_displacement / stride) * stride, D = 2 * (max_displacement /
+// stride) + 1 and dy, dx in {-R, -R + stride, ..., R}:
 //
 //   out[b, dyi * D + dxi, y, x] = (1/C) * sum_c f1[b,c,y,x] * f2[b,c,y+dy,x+dx]
 //

@@ -13,24 +13,31 @@ d = max_displacement // stride, D = 2 d + 1 and dy, dx in
 layer).  f1, f2: (B, C, H, W) -> (B, D * D, H, W); the JAX functions are the
 same with channels last.
 
-Two hand-written kernels compute it on the card; `route_for` picks one from
-the shape alone, before any launch:
+One hand-written kernel computes it on the card, for every grid the TPU
+kernel takes; `route_for` names the route from the device alone:
 
-  CPU tensor               -> the plain version
-  CUDA, stride 2, D <= 25  -> "tc": csrc/cost_volume_tc.cu (banded tensor-core
-                              product; any C and map size)
-  CUDA, any other grid     -> "cuda_core": csrc/cost_volume.cu
+  CPU tensor                  -> the plain version
+  CUDA, any md >= 0, s >= 1   -> "tc": csrc/cost_volume_tc.cu (banded
+                                 tensor-core product over classes of pixels
+                                 mod s and windows of horizontal shifts; any
+                                 C and map size, B and H up to 65,535)
 
-Each is built with nvcc for sm_90a on first use and loaded with ctypes
-(ops/cuda_build.py).  `cost_volume_cuda` launches the routed kernel or
-raises, with no fallback to the other kernel; `correlation` runs the plain
-version only for CPU tensors.  The backward is plain PyTorch on every
-device, as the JAX package's VJP is a plain XLA shift-and-reduce: the flow
-teacher is frozen and no training path differentiates through it.
+`tc_plan` mirrors the kernel's tiling (fsv_cost_volume_tc_plan).  The
+CUDA-core kernel csrc/cost_volume.cu (any stride, D <= 64), the route of
+every grid but stride 2 with D <= 25 until the tensor-core kernel took them
+all, is no route's kernel; `_launch_cuda_core` stays so that it can be
+checked and timed beside it.  Each is built with nvcc for sm_90a on first
+use and loaded with ctypes (ops/cuda_build.py).  `cost_volume_cuda`
+launches the tensor-core kernel or raises, with no fallback to the other
+kernel; `correlation` runs the plain version only for CPU tensors.  The
+backward is plain PyTorch on every device, as the JAX package's VJP is a
+plain XLA shift-and-reduce: the flow teacher is frozen and no training path
+differentiates through it.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +45,13 @@ import torch.nn.functional as F
 from fsvid2vid_tpu_torch.ops.cuda_build import CudaLibrary
 
 SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
-TC_MAX_D = 25          # the tc kernel's widest displacement grid (csrc MAX_D)
+# the tc kernel's tiling constants (csrc/cost_volume_tc.cu)
+TC_CLASS_PX = 16       # pixels of one class: the m16 tile
+TC_PIXELS = 32         # pixels of a block: two classes
+TC_SLOTS = 4           # vertical shifts per step
+TC_CS = 36             # staged channel stride (floats)
+TC_MAX_NT = 5          # n8 tiles of f2 columns per class
+TC_MAX_DW = 8 * TC_MAX_NT - 15   # horizontal shifts per window
 
 
 def _declare(lib):
@@ -57,6 +70,10 @@ def _declare_tc(lib):
     fn.restype = ctypes.c_int
     lib.fsv_cost_volume_tc_scratch_bytes.argtypes = [ctypes.c_int] * 4
     lib.fsv_cost_volume_tc_scratch_bytes.restype = ctypes.c_size_t
+    lib.fsv_cost_volume_tc_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.fsv_cost_volume_tc_smem_bytes.restype = ctypes.c_size_t
+    lib.fsv_cost_volume_tc_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.fsv_cost_volume_tc_plan.restype = ctypes.c_int
 
 
 KERNEL = CudaLibrary("cost_volume", _declare)
@@ -64,13 +81,59 @@ KERNEL_TC = CudaLibrary("cost_volume_tc", _declare_tc)
 
 
 def route_for(device_type: str, max_displacement: int, stride: int) -> str:
-    """The rule: "plain", "tc" or "cuda_core" for inputs on `device_type`
-    and this displacement grid."""
-    if device_type == "cpu":
-        return "plain"
-    if stride == 2 and 2 * (max_displacement // stride) + 1 <= TC_MAX_D:
-        return "tc"
-    return "cuda_core"
+    """The rule: "plain" for inputs on the CPU, else "tc", whatever the
+    displacement grid (the arguments are checked where the call is made)."""
+    return "plain" if device_type == "cpu" else "tc"
+
+
+class TcPlan(NamedTuple):
+    """The tc kernel's tiling of one grid on rows of `width` pixels, field
+    for field what fsv_cost_volume_tc_plan returns."""
+    d: int             # shifts per axis
+    radius: int        # R = stride * (max_displacement // stride)
+    classes: int       # classes of pixels per block
+    class_pixels: int  # pixels per class
+    windows: int       # windows of horizontal shifts
+    window_d: int      # shifts per window, at most TC_MAX_DW
+    n_tiles: int       # n8 tiles of f2 columns per class and window
+    x_blocks: int      # blocks along a row, windows included
+    smem_bytes: int    # dynamic shared memory of one block
+
+
+def tc_plan(max_displacement: int, stride: int, width: int = 1) -> TcPlan:
+    """The tiling csrc/cost_volume_tc.cu picks: a row's pixels in classes of
+    16 at step `stride`, two classes a block; the D horizontal shifts in
+    ceil(D / 25) windows of equal width, each a 16 x 8 NT band product per
+    class; two double-buffered staging buffers and the outputs of 4 shifts
+    in shared memory."""
+    if stride < 1 or max_displacement < 0 or width < 1:
+        raise ValueError(f"cost volume: max_displacement={max_displacement}, "
+                         f"stride={stride}, width={width} not supported")
+    d = 2 * (max_displacement // stride) + 1
+    windows = -(-d // TC_MAX_DW)
+    window_d = -(-d // windows)
+    n_tiles = (15 + window_d + 7) // 8
+    spans = -(-width // (TC_CLASS_PX * stride))
+    buffer_floats = (TC_PIXELS + TC_SLOTS * 16 * n_tiles) * TC_CS
+    smem = 4 * (2 * buffer_floats + TC_SLOTS * window_d * TC_PIXELS)
+    return TcPlan(d, max_displacement // stride * stride, 2, TC_CLASS_PX, windows,
+                  window_d, n_tiles, (stride * spans + 1) // 2 * windows, smem)
+
+
+def tc_class_first(cls: int, stride: int) -> int:
+    """The first pixel of a row's class `cls` in the tc kernel (its pixels
+    are that one + stride * i, i < 16): span cls // stride, residue
+    cls % stride."""
+    return TC_CLASS_PX * stride * (cls // stride) + cls % stride
+
+
+def tc_plan_of_library(lib, max_displacement: int, stride: int, width: int = 1) -> TcPlan:
+    """The same plan as the built kernel reports it."""
+    plan = (ctypes.c_int * len(TcPlan._fields))()
+    if lib.fsv_cost_volume_tc_plan(max_displacement, stride, width, plan) != 0:
+        raise ValueError(f"fsv_cost_volume_tc_plan refused md={max_displacement}, "
+                         f"stride={stride}, width={width}")
+    return TcPlan(*plan)
 
 
 def displacements(max_displacement: int, stride: int):
@@ -132,13 +195,10 @@ def _count(route):
 
 
 def _launch_tc(f1, f2, max_displacement, stride):
-    """The tensor-core kernel: stride 2, D <= 25.  Its pre-pass writes f1 and
-    f2 channels-last into a scratch tensor allocated here."""
+    """The tensor-core kernel, for every grid.  Its pre-pass writes f1 and f2
+    channels-last into a scratch tensor allocated here."""
     _check_cuda(f1, f2, max_displacement, stride)
     b, c, h, w = f1.shape
-    if route_for("cuda", max_displacement, stride) != "tc":
-        raise ValueError(f"cost_volume_cuda tc: takes stride 2 and D <= {TC_MAX_D}, got "
-                         f"max_displacement={max_displacement}, stride={stride}")
     lib = KERNEL_TC.load()
     d = 2 * (max_displacement // stride) + 1
     scratch = torch.empty(lib.fsv_cost_volume_tc_scratch_bytes(b, c, h, w),
@@ -155,7 +215,8 @@ def _launch_tc(f1, f2, max_displacement, stride):
 
 
 def _launch_cuda_core(f1, f2, max_displacement, stride):
-    """The CUDA-core kernel: any stride and D <= 64."""
+    """The CUDA-core kernel, the previous design and no route's kernel: any
+    stride and D <= 64; checked and timed beside the tc kernel."""
     _check_cuda(f1, f2, max_displacement, stride)
     lib = KERNEL.load()
     b, c, h, w = f1.shape
@@ -180,18 +241,16 @@ def _launch_cuda_core(f1, f2, max_displacement, stride):
 
 def cost_volume_cuda(f1: torch.Tensor, f2: torch.Tensor,
                      max_displacement: int = 20, stride: int = 2) -> torch.Tensor:
-    """The routed kernel on CUDA tensors (forward only).  Raises on anything
-    the kernel does not take and on a failed build or launch."""
-    _check_cuda(f1, f2, max_displacement, stride)
-    route = route_for("cuda", max_displacement, stride)
-    return _LAUNCH[route](f1, f2, max_displacement, stride)
+    """The tensor-core kernel on CUDA tensors (forward only).  Raises on
+    arguments the TPU kernel does not take either and on a failed build or
+    launch."""
+    return _launch_tc(f1, f2, max_displacement, stride)
 
 
-_LAUNCH = {"tc": _launch_tc, "cuda_core": _launch_cuda_core}
-
-# launches of either kernel, and by route
+# launches of either kernel, and by route ("cuda_core" only from direct
+# calls of _launch_cuda_core)
 cost_volume_cuda.launches = 0
-cost_volume_cuda.launches_by_route = {route: 0 for route in _LAUNCH}
+cost_volume_cuda.launches_by_route = {"tc": 0, "cuda_core": 0}
 
 
 def cost_volume_backward_plain(f1, f2, grad, max_displacement: int, stride: int):

@@ -26,7 +26,10 @@ def flow_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     y0 = torch.floor(y)
     fx = (x - x0)[:, None].to(image.dtype)
     fy = (y - y0)[:, None].to(image.dtype)
-    x0i, y0i = x0.long(), y0.long()
+    # a NaN in the flow leaves x0 / y0 NaN, whose integer value is undefined
+    # (on the card a gather out of the image is a device-side assert): clamp
+    # the indices, and the pixel comes out NaN through fx / fy, as in JAX
+    x0i, y0i = x0.long().clamp(0, w - 1), y0.long().clamp(0, h - 1)
     x1i = (x0i + 1).clamp(max=w - 1)
     y1i = (y0i + 1).clamp(max=h - 1)
     flat = image.reshape(b, c, h * w)

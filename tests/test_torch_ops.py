@@ -39,6 +39,23 @@ def test_flow_warp_matches_jax(rng, b, h, w, c):
     np.testing.assert_allclose(out, ref, atol=ATOL)
 
 
+def test_flow_warp_nonfinite_flow_matches_jax(rng):
+    """A flow with NaN, +-inf and huge entries: the pixels of a NaN come out
+    NaN as in JAX (and the gather stays inside the image), the others are
+    clamped to the border as usual."""
+    b, h, w, c = 3, 9, 13, 4
+    img = rng.randn(b, h, w, c).astype(np.float32)
+    flow = (rng.randn(b, h, w, 2) * 4).astype(np.float32)
+    flow[0, 2, 3, 0] = flow[1, 4, 5, 1] = np.nan
+    flow[2, 1, 1, :] = np.nan
+    flow[0, 5, 5, 0], flow[1, 6, 2, 1], flow[2, 7, 8, 0] = np.inf, -np.inf, 1e30
+    ref = np.asarray(jwarp.flow_warp(jnp.asarray(img), jnp.asarray(flow)))
+    out = nhwc(twarp.flow_warp(nchw(img), nchw(flow)))
+    assert np.isnan(ref).any(-1).sum() == 3
+    np.testing.assert_array_equal(np.isnan(out), np.isnan(ref))
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
 def test_flow_warp_equals_border_grid_sample(rng):
     """The reference warps with grid_sample(align_corners=True, border) on
     the flow normalised by (W-1)/2 and (H-1)/2."""
