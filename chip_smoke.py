@@ -32,8 +32,8 @@ face_config:
     512 x 256 with the face discriminator and remat (`phase_pose_cli`, the
     teacher's cost volume on 64 x 32 maps of the label's DensePose
     channels), and a small pose model's step on the card against the CPU;
-  * test-time finetune: `cli.test --finetune` on the pose checkpoint, 100
-    steps at full width (`phase_finetune_pose`), and two steps of a small
+  * test-time finetune: `cli.test --finetune` on the pose checkpoint, 25 of
+    the reference's 100 steps at full width (`phase_finetune_pose`), and two steps of a small
     model on the card against the CPU;
   * street: a small street model's step on the card against the CPU, and
     the train and test CLIs at 512 x 256, batch 6, one-hot labels
@@ -73,11 +73,21 @@ face_config:
     --finetune` on its checkpoint, 100 steps (`finetune_face_adaptive`); a
     small K = 2 model with both features, its step on the card against the
     CPU and its saved programs at K = 1 and K = 2 against the pipeline
-    (`phase_small_adaptive`).
+    (`phase_small_adaptive`);
+  * the FlowNet2 sub-variants (2C, 2S, 2SD, 2CS, 2CSS) in f32 on the face
+    teacher's 12 image pairs at 256 px, each with the kernel and with the
+    plain correlation (`phase_flownet2_variants`: one cost-volume launch a
+    call for 2C, 2CS and 2CSS, none for 2S and 2SD);
+  * data parallel (`phase_data_parallel`): face 256 training in f32 at
+    full width, global batch 4, over two ranks on the one card (two
+    processes over gloo) against one process, a single-frame and a
+    temporal step, ranks bitwise equal after each; then `cli.train
+    --distributed` for one step in a one-rank NCCL group.
 
 Each phase prints one JSON line and then its seconds on a line of their
-own; the finetune phases other than finetune_pose run 25 of the
-reference's 100 iterations, to stay inside the time limit.  The kernels
+own; the finetune phases run 25 of the reference's 100 iterations
+(finetune_pose ran all 100 until the data-parallel phases came), to stay
+inside the time limit.  The kernels
 line comes before the last line, and the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -1830,19 +1840,18 @@ def generators_moved_as_their_gradients_allow(res):
         "gf_gradients" not in res or g_moved_as_its_gradients_allow(gf))
 
 
-# finetune iterations: the reference's 100 in finetune_pose; the other
-# finetune phases run the same code at a cut depth, inside the time limit
-FINETUNE_ITERS = 100       # vid2vid_model.py:218
+# finetune iterations: 25 of the reference's 100 (vid2vid_model.py:218) in
+# every finetune phase, inside the time limit
 FINETUNE_ITERS_CUT = 25
 
 
 def phase_finetune_pose(torch, tmp, name="pose", flags=POSE_FLAGS, phase="finetune_pose",
-                        iters=FINETUNE_ITERS):
+                        iters=FINETUNE_ITERS_CUT):
     """scripts/pose/test.sh: `cli.test --dataset_mode fewshot_pose ...
     --finetune` on the checkpoint `name` that `phase_pose_cli` (or, with
     --refine_face among `flags`, `phase_pose_refine_cli`; or, with face
     `flags`, `phase_cli_adaptive`) left in `tmp`, with `iters` iterations
-    (the reference's 100 unless cut) at the slice's full width, then
+    (25 of the reference's 100) at the slice's full width, then
     POSE_TEST_FRAMES frames.  The
     finetune is observed through its module function: the G (and netGf)
     parameters outside finetune_mask leave it bitwise as they entered, some
@@ -3356,6 +3365,158 @@ def phase_eval_512(torch, tmp, results_dir, data):
     return res
 
 
+# ---- FlowNet2's sub-variants and data parallel over ranks ----
+
+VARIANT_BATCH = 12        # the face teacher's pairs: batch 4 x 3 frames
+VARIANT_FLOW_RTOL = 1e-3  # of the flow's largest magnitude (tests/test_torch_flownet.py)
+VARIANT_REPS = 3
+VARIANT_B2 = {"FlowNet2C": 1, "FlowNet2S": 0, "FlowNet2SD": 0, "FlowNet2CS": 1,
+              "FlowNet2CSS": 1}
+DP_RANKS, DP_BATCH = 2, 4
+DP_FRAME_TOL = 1e-3       # the first step's frames over the ranks against one process
+DP_DEADLINE_S = 420
+
+
+def phase_flownet2_variants(torch):
+    """The five FlowNet2 sub-variants in f32 on the face teacher's image
+    pairs (12 x 3 x 256 x 256; FlowNetC's correlation at B2's teacher shape
+    (12, 256, 32, 32)): each with the kernel and again with the plain
+    correlation, the flows within VARIANT_FLOW_RTOL of the largest
+    magnitude; B2 launches per call by route and ms per call by CUDA events.
+    2C, 2CS and 2CSS load the teacher's seeded FlowNet2 state dict by name;
+    2S and 2SD are seeded the same way."""
+    from fsvid2vid_tpu_torch.config import face_config
+    from fsvid2vid_tpu_torch.models import build_on_device, init_plain_convs
+    from fsvid2vid_tpu_torch.models.flownet import flownet2 as fn
+    from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
+    cfg = face_config(batch_size=TRAIN_BATCH)
+    full = FlowTeacher(cfg, generator=torch.Generator().manual_seed(11)).model.state_dict()
+    seq = train_data(torch, cfg, VARIANT_BATCH, 2, 31)
+    im1, im2 = ((seq["tgt_image"][:, t].permute(0, 3, 1, 2).contiguous() + 1) / 2
+                for t in (0, 1))
+    kernel_correlation = fn.correlation
+
+    def plain_correlation(f1, f2, max_displacement=20, stride=2):
+        return cv.cost_volume_plain(f1, f2, max_displacement, stride)
+
+    res = {"phase": "flownet2_variants", "batch": VARIANT_BATCH, "size": cfg.fine_size,
+           "b2_shape": list(CV_SHAPES["slice"]), "variants": {}}
+    launches_tc = 0
+    for name, want in VARIANT_B2.items():
+        net = build_on_device(fn.VARIANTS[name], "cuda")
+        keys = set(net.state_dict())
+        if want:   # the cascade's flownetc / flownets_1 / flownets_2, by name
+            net.load_state_dict({k: full[k] for k in keys}, strict=True)
+        else:
+            init_plain_convs(net, torch.Generator().manual_seed(11))
+        net = net.eval().requires_grad_(False)
+        run = lambda: net(im1, im2)
+        with torch.no_grad():
+            zero_counts(cv)
+            flow = run()
+            torch.cuda.synchronize()
+            by_route = check_counts(cv, name, want)
+            ms = cuda_ms(torch, run, VARIANT_REPS)
+            fn.correlation = plain_correlation
+            try:
+                plain = run()
+                zero_counts(cv)
+                plain_ms = cuda_ms(torch, run, VARIANT_REPS)
+                check_counts(cv, f"{name} with the plain correlation", 0)
+            finally:
+                fn.correlation = kernel_correlation
+        scale = plain.abs().max().item()
+        err = (flow - plain).abs().max().item()
+        entry = {"params": sum(p.numel() for p in net.parameters()),
+                 "shape": list(flow.shape), "b2_launches_per_call": by_route, "ms": ms,
+                 "plain_correlation_ms": plain_ms, "flow_max_abs": scale,
+                 "max_abs_err": err, "rel_err": err / max(scale, 1e-30)}
+        res["variants"][name] = entry
+        launches_tc += by_route["tc"]
+        if tuple(flow.shape) != (VARIANT_BATCH, 2, cfg.fine_size, cfg.fine_size):
+            raise AssertionError(f"{name}: flow of shape {tuple(flow.shape)}")
+        if not (torch.isfinite(flow).all() and scale > 0):
+            raise AssertionError(f"{name}: flow not finite or all zero")
+        if err > VARIANT_FLOW_RTOL * scale:
+            raise AssertionError(f"{name}: kernel flow differs from the plain correlation's "
+                                 f"by {err} (limit {VARIANT_FLOW_RTOL} x {scale})")
+        del net, flow, plain
+    res["b2_launches_tc"] = launches_tc
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_data_parallel(torch, tmp):
+    """train_face_256 in f32 at full width (K = 1, VGG and flow ground truth
+    on), global batch 4: one single-frame and one temporal step over two
+    ranks on the one card (two processes over gloo, which stages CUDA
+    tensors through the host; NCCL refuses two ranks on one device) against
+    the same steps in this process at batch 4, each from the state the
+    ranks' step started from, within JAX's dryrun tolerances (every step;
+    parallel/dryrun.py `check_data_parallel`), the first step's frames
+    within DP_FRAME_TOL,
+    and every parameter, buffer and Adam moment bitwise equal across the
+    ranks after each step; B2 launches on tc in each rank through its
+    teacher.  Then `cli.train --distributed` in a one-rank NCCL group for
+    one step, through torchrun's environment."""
+    import os
+    import socket
+    from fsvid2vid_tpu_torch.parallel.dryrun import check_data_parallel
+    t0 = time.perf_counter()
+    report = check_data_parallel(
+        dict(batch_size=DP_BATCH, pool_size=0), n_ranks=DP_RANKS, device="cuda",
+        backend="gloo", teacher=True,
+        work_dir=tmp, timeout_s=300, deadline_s=DP_DEADLINE_S, image_tol=DP_FRAME_TOL)
+    res = {"phase": "data_parallel_face_256", "ranks": DP_RANKS, "global_batch": DP_BATCH,
+           "backend": "gloo", "dtype": "float32", "seconds": time.perf_counter() - t0,
+           "frame_max_abs_diff": report["frame_max_abs_diff"],
+           "max_loss_diff": [max(d.values()) for d in report["diff"]],
+           "losses_one_process": report["single"]["losses"],
+           "losses_ranks": report["ranks"][0]["losses"],
+           "ms_per_step_one_process": report["single"]["ms"],
+           "ms_per_step_ranks": [r["ms"] for r in report["ranks"]],
+           "teacher_ms": {"one_process": report["single"]["teacher_ms"],
+                          "ranks": [r["teacher_ms"] for r in report["ranks"]]},
+           "tensors_equal_across_ranks": report["ranks"][0]["n_tensors"],
+           "b2_launches_by_rank": [r["b2_launches_by_route"] for r in report["ranks"]],
+           "b2_launches_one_process": report["single"]["b2_launches_by_route"]}
+    for r in report["ranks"]:   # one teacher call: the reference and previous flows
+        if r["b2_launches_by_route"] != {"tc": 2, "cuda_core": 0}:
+            raise AssertionError(f"rank {r['rank']}: B2 launches {r['b2_launches_by_route']}")
+
+    # one step of the CLI in a one-rank NCCL group (torchrun's environment)
+    data = write_face_dataset(os.path.join(tmp, "data"), 5, n_frames=6)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fsvid2vid_tpu_torch.cli.train", "--distributed",
+         "--name", "nccl1", "--dataroot", data, "--checkpoints_dir", os.path.join(tmp, "ck"),
+         "--batchSize", "1", "--niter", "1", "--niter_decay", "0", "--niter_single", "1",
+         "--steps_per_epoch", "1", "--num_workers", "0", "--no_flow_gt", "--ngf", "8",
+         "--ndf", "8", "--fineSize", "64", "--loadSize", "64", "--no_vgg_loss"],
+        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=300)
+    res["nccl_one_rank"] = {"exit": proc.returncode, "seconds": time.perf_counter() - t0,
+                            "log_tail": proc.stdout[-400:]}
+    if proc.returncode:
+        raise AssertionError(f"cli.train in a one-rank NCCL group exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    payload = torch.load(os.path.join(tmp, "ck", "nccl1", "latest"), map_location="cpu",
+                         weights_only=True)
+    res["nccl_one_rank"].update(cursor=payload["cursor"], steps=payload["step"])
+    if payload["cursor"] != {"epoch": 2, "epoch_iter": 0} or payload["step"] != 1:
+        raise AssertionError(f"one-rank NCCL run: checkpoint cursor {payload['cursor']}, "
+                             f"step {payload['step']}")
+    emit(res)
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import os
     import tempfile
@@ -3422,6 +3583,9 @@ def main() -> int:
                           "face_adaptive", ["--adaptive_conv"], "finetune_face_adaptive",
                           FINETUNE_ITERS_CUT)
         small_ad_res = timed("small_adaptive", phase_small_adaptive, torch, ad_tmp)
+    variants_res = timed("flownet2_variants", phase_flownet2_variants, torch)
+    with tempfile.TemporaryDirectory(prefix="fsv_dp_") as dp_tmp:
+        dp_res = timed("data_parallel_face_256", phase_data_parallel, torch, dp_tmp)
     emit({"phase_seconds_all": seconds, "total_seconds": time.perf_counter() - t_start})
     bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
     c36 = kern["ragged_c36", "float32"]
@@ -3539,7 +3703,10 @@ def main() -> int:
                              "cli_adaptive_resume": ad_res["resume"]["launches"]["tc"],
                              "adaptive_turns": ad_res["launches_turns"]["tc"],
                              "finetune_face_adaptive": ad_ft_res["b2_launches"]["tc"],
-                             "small_adaptive": small_ad_res["b2_launches"]["tc"]},
+                             "small_adaptive": small_ad_res["b2_launches"]["tc"],
+                             "flownet2_variants": variants_res["b2_launches_tc"],
+                             "data_parallel_face_256": sum(
+                                 r["tc"] for r in dp_res["b2_launches_by_rank"])},
         **{f"{case}_shape": {k: cv_res[case, "float32"][k] for k in cv_keys + (
             "shape", "bound_share", "previous_design_ms")} for case in ("pose", "street")},
         **{k: cv_main[k] for k in cv_keys},

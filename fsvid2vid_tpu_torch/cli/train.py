@@ -1,6 +1,6 @@
 """Training CLI of the PyTorch port (the twin of the JAX package's train.py;
-reference train.py): few-shot vid2vid face, pose or street training on one
-CUDA device.
+reference train.py): few-shot vid2vid face, pose or street training, on one
+CUDA device or data parallel over several, one process per GPU.
 
   python -m fsvid2vid_tpu_torch.cli.train --name face --dataroot datasets/face \\
       --adaptive_spade --warp_ref --spade_combine --batchSize 4
@@ -14,12 +14,28 @@ CUDA device.
       --dataset_mode fewshot_street --adaptive_spade --loadSize 512 --fineSize 512 \\
       --batchSize 6
 
+Data parallel (parallel/mesh.py): `--batchSize` is the global batch, split
+in equal shares over the ranks; each rank takes cuda:LOCAL_RANK, and joins
+the group over NCCL (gloo with `--device cpu`).  Under torchrun,
+`--distributed` reads RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT:
+
+  torchrun --nproc_per_node 8 -m fsvid2vid_tpu_torch.cli.train --distributed \
+      --name face --dataroot datasets/face --batchSize 32 ...
+
+or give each process its coordinates (the address may also be an init URL,
+such as file:///shared/path):
+
+  python -m fsvid2vid_tpu_torch.cli.train --distributed \
+      --coordinator_address host0:29500 --num_processes 8 --process_id $i ...
+
+Rank 0 alone writes config.json, checkpoints, pages and logs.
+
 The argparse surface keeps the JAX CLI's flags, flag for flag, plus
 `--device` (CUDA unless named; the tests pass `--device cpu`).  Parsed flags
 override the workload preset that `--dataset_mode` names (fewshot_pose
 -> pose_config, with remat on; fewshot_street -> street_config, 20 one-hot
-label classes at 512 x 256).  A flag the port cannot honour yet exits
-non-zero and names its ROADMAP.md item; none is dropped silently.
+label classes at 512 x 256).  An incomplete or inconsistent flag exits
+non-zero before any file is written; none is dropped silently.
 """
 from __future__ import annotations
 
@@ -27,17 +43,12 @@ import argparse
 import dataclasses
 import os
 import sys
+from typing import Optional
 
-# flags of the JAX CLI that the port cannot honour yet -> ROADMAP.md item
-UNPORTED_FLAGS = {
-    "distributed": "A.12 (data parallel)",
-    "coordinator_address": "A.12 (data parallel)",
-    "num_processes": "A.12 (data parallel)",
-    "process_id": "A.12 (data parallel)",
-}
 # flags that main() consumes itself and that name no config field
 RUN_FLAGS = {"faithful", "tf_log", "steps_per_epoch", "flownet_ckpt", "vgg_ckpt",
-             "device"}
+             "device", "distributed", "coordinator_address", "num_processes",
+             "process_id"}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -113,9 +124,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="TensorBoard scalar curves (reference --tf_log)")
     # runtime
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported yet)")
+                   help="data parallel over processes, one per GPU; alone, the "
+                        "coordinates come from torchrun's environment")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="host:port of process 0 (not ported yet)")
+                   help="host:port of process 0 (or an init URL such as "
+                        "file:///path); needs --num_processes and --process_id")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--steps_per_epoch", type=int, default=1000)
@@ -140,9 +153,6 @@ def config_from_args(parser: argparse.ArgumentParser, args, is_train: bool = Tru
     from fsvid2vid_tpu_torch.config import Config, preset
 
     given = {k: v for k, v in vars(args).items() if _given(v)}
-    for flag, item in UNPORTED_FLAGS.items():
-        if flag in given:
-            parser.error(f"--{flag} is not ported yet (ROADMAP.md {item})")
     if args.dataset_mode not in ("fewshot_face", "fewshot_pose", "fewshot_street"):
         parser.error(f"unknown --dataset_mode {args.dataset_mode}")
     fields = {f.name for f in dataclasses.fields(Config)}
@@ -164,6 +174,41 @@ def config_from_args(parser: argparse.ArgumentParser, args, is_train: bool = Tru
     return cfg
 
 
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """How this process joins the data-parallel group."""
+    init_method: str
+    world_size: Optional[int]   # None: from the environment (env://)
+    rank: Optional[int]
+
+
+def group_from_args(parser: argparse.ArgumentParser, args) -> Optional[GroupSpec]:
+    """The process group the distributed flags ask for, or None for one
+    process.  Exits through `parser.error`, naming the missing flag, on an
+    incomplete combination."""
+    explicit = {f: getattr(args, f) for f in ("num_processes", "process_id")}
+    if args.coordinator_address:
+        for flag, value in explicit.items():
+            if value is None:
+                parser.error(f"--coordinator_address needs --{flag}")
+        n, i = explicit["num_processes"], explicit["process_id"]
+        if n < 1 or not 0 <= i < n:
+            parser.error(f"--process_id {i} outside 0..{n - 1} (--num_processes {n})")
+        from fsvid2vid_tpu_torch.parallel.mesh import init_url
+        return GroupSpec(init_url(args.coordinator_address), n, i)
+    for flag, value in explicit.items():
+        if value is not None:
+            parser.error(f"--{flag} needs --coordinator_address")
+    if not args.distributed:
+        return None
+    missing = [v for v in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+               if v not in os.environ]
+    if missing:
+        parser.error(f"--distributed without --coordinator_address reads torchrun's "
+                     f"environment; {', '.join(missing)} not set")
+    return GroupSpec("env://", None, None)
+
+
 @dataclasses.dataclass
 class TrainRun:
     """What `setup` builds for a run: the trainer, its loader and teacher."""
@@ -181,15 +226,26 @@ class TrainRun:
 
 def setup(args, parser=None) -> TrainRun:
     """Config, device, visualizer, loader, teacher and trainer of a run
-    (the trainer set up: resumed or warm-started where asked)."""
+    (the trainer set up: resumed or warm-started where asked).  With the
+    distributed flags the process joins its group first."""
     parser = parser or build_arg_parser()
     cfg = config_from_args(parser, args, is_train=True)
+    group = group_from_args(parser, args)
     from fsvid2vid_tpu_torch import resolve_device
     try:
         device = resolve_device(args.device)
     except RuntimeError as e:
         sys.exit(f"train: {e}")
     import torch
+    from fsvid2vid_tpu_torch.parallel import mesh
+    if group is not None:
+        mesh.init(mesh.backend_for(device), group.init_method, group.world_size, group.rank)
+        device = mesh.rank_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        if cfg.batch_size % mesh.world():
+            sys.exit(f"train: --batchSize {cfg.batch_size} does not split over "
+                     f"{mesh.world()} processes")
     from fsvid2vid_tpu_torch.data.loader import SequenceLoader
     from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
     from fsvid2vid_tpu_torch.training.trainer import Trainer
@@ -199,10 +255,12 @@ def setup(args, parser=None) -> TrainRun:
     if device.type == "cuda":   # f32 products stay f32, as in the JAX package
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    os.makedirs(os.path.join(cfg.checkpoints_dir, cfg.name), exist_ok=True)
-    cfg.save(os.path.join(cfg.checkpoints_dir, cfg.name, "config.json"))
+    if mesh.is_master():
+        os.makedirs(os.path.join(cfg.checkpoints_dir, cfg.name), exist_ok=True)
+        cfg.save(os.path.join(cfg.checkpoints_dir, cfg.name, "config.json"))
     vis = Visualizer(cfg, tb_log=args.tf_log)
-    loader = SequenceLoader(cfg, steps_per_epoch=args.steps_per_epoch, seed=cfg.seed)
+    loader = SequenceLoader(cfg, steps_per_epoch=args.steps_per_epoch, seed=cfg.seed,
+                            shard_id=mesh.rank(), num_shards=mesh.world())
 
     teacher = None
     if not cfg.no_flow_gt and cfg.flow_teacher == "flownet2":
@@ -228,10 +286,15 @@ def setup(args, parser=None) -> TrainRun:
 
 
 def main(argv=None) -> TrainRun:
+    """Train; a process group the run joined is left at the end."""
     parser = build_arg_parser()
-    run = setup(parser.parse_args(argv), parser)
-    run.trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
-    run.vis.close()
+    from fsvid2vid_tpu_torch.parallel import mesh
+    try:
+        run = setup(parser.parse_args(argv), parser)
+        run.trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
+        run.vis.close()
+    finally:
+        mesh.destroy()
     return run
 
 

@@ -11,8 +11,10 @@ its state dict loads directly.  All convs have a bias and leaky(0.1)
 On CUDA tensors the correlation runs the hand-written kernel
 (ops/cost_volume.py).
 
-The standalone variants (FlowNet2C / 2S / 2SD / 2CS / 2CSS) are not on the
-training path and are not ported.
+The standalone variants of the family (FlowNet2C / 2S / 2SD / 2CS / 2CSS,
+reference models.py:185-470) are here too, off the training path.  Their
+sub-networks carry the cascade's names (`flownetc`, `flownets_1`, ...), so a
+FlowNet2 state dict loads into 2C, 2CS and 2CSS by name.
 """
 from __future__ import annotations
 
@@ -232,6 +234,20 @@ class FlowNetFusion(nn.Module):
         return self.predict_flow0(self.inter_conv0(concat0))
 
 
+def refine_input(x1, x2, flow, div_flow: float):
+    """A FlowNetS stage's 12 channels: both frames, the second warped by
+    `flow`, the flow over div_flow and the warp's error norm."""
+    warped = flow_warp(x2, flow)
+    return torch.cat([x1, x2, warped, flow / div_flow, channel_norm(x1 - warped)], 1)
+
+
+def rgb_norm(im1, im2, rgb_max: float):
+    """Both frames less their per-(sample, channel) mean over both frames,
+    over rgb_max (JAX `_RgbNorm`)."""
+    rgb_mean = torch.stack([im1, im2], 1).mean((1, 3, 4), keepdim=True)[:, 0]
+    return (im1 - rgb_mean) / rgb_max, (im2 - rgb_mean) / rgb_max
+
+
 class FlowNet2(nn.Module):
     """The full cascade (reference models.py:116-182).  im1, im2:
     (B, 3, H, W) with H, W multiples of 64; returns the pixel-space flow
@@ -247,21 +263,12 @@ class FlowNet2(nn.Module):
         self.flownets_d = FlowNetSD()
         self.flownetfusion = FlowNetFusion()
 
-    def _refine_input(self, x1, x2, flow):
-        warped = flow_warp(x2, flow)
-        return torch.cat([x1, x2, warped, flow / self.div_flow,
-                          channel_norm(x1 - warped)], 1)
-
     def forward(self, im1, im2):
-        # per-(sample, channel) mean over both frames
-        rgb_mean = torch.stack([im1, im2], 1).mean((1, 3, 4), keepdim=True)[:, 0]
-        x1 = (im1 - rgb_mean) / self.rgb_max
-        x2 = (im2 - rgb_mean) / self.rgb_max
-
+        x1, x2 = rgb_norm(im1, im2, self.rgb_max)
         c_flow = upsample_bilinear(self.flownetc(x1, x2) * self.div_flow, 4)
-        s1_flow2 = self.flownets_1(self._refine_input(x1, x2, c_flow))
+        s1_flow2 = self.flownets_1(refine_input(x1, x2, c_flow, self.div_flow))
         s1_flow = upsample_bilinear(s1_flow2 * self.div_flow, 4)
-        s2_flow2 = self.flownets_2(self._refine_input(x1, x2, s1_flow))
+        s2_flow2 = self.flownets_2(refine_input(x1, x2, s1_flow, self.div_flow))
         s2_flow = upsample_nearest(s2_flow2 * self.div_flow, 4)
         diff_s2 = channel_norm(x1 - flow_warp(x2, s2_flow))
 
@@ -272,3 +279,90 @@ class FlowNet2(nn.Module):
         return self.flownetfusion(torch.cat(
             [x1, sd_flow, s2_flow, channel_norm(sd_flow), channel_norm(s2_flow),
              diff_sd, diff_s2], 1))
+
+
+# ---------------------------------------------------------------------------
+# The standalone sub-variants (JAX flownet2.py:311-396, reference
+# models.py:185-470).  Each takes (im1, im2) in [0, rgb_max], (B, 3, H, W)
+# with H, W multiples of 64, and returns the quarter-resolution flow scaled
+# by div_flow and upsampled x4, bilinearly but for FlowNet2CSS's last head,
+# which is nearest (reference models.py:451 upsample3).
+# ---------------------------------------------------------------------------
+
+class _Variant(nn.Module):
+    def __init__(self, div_flow: float = 20.0, rgb_max: float = 1.0):
+        super().__init__()
+        self.div_flow = div_flow
+        self.rgb_max = rgb_max
+
+
+class FlowNet2C(_Variant):
+    """FlowNetC alone; one B2 launch per call on CUDA."""
+
+    def __init__(self, div_flow: float = 20.0, rgb_max: float = 1.0):
+        super().__init__(div_flow, rgb_max)
+        self.flownetc = FlowNetC()
+
+    def forward(self, im1, im2):
+        x1, x2 = rgb_norm(im1, im2, self.rgb_max)
+        return upsample_bilinear(self.flownetc(x1, x2) * self.div_flow, 4)
+
+
+class FlowNet2S(_Variant):
+    """FlowNetS on the 6 channels of both frames."""
+
+    def __init__(self, div_flow: float = 20.0, rgb_max: float = 1.0):
+        super().__init__(div_flow, rgb_max)
+        self.flownets = FlowNetS(input_channels=6)
+
+    def forward(self, im1, im2):
+        x1, x2 = rgb_norm(im1, im2, self.rgb_max)
+        return upsample_bilinear(self.flownets(torch.cat([x1, x2], 1)) * self.div_flow, 4)
+
+
+class FlowNet2SD(_Variant):
+    """FlowNetSD alone, for small displacements."""
+
+    def __init__(self, div_flow: float = 20.0, rgb_max: float = 1.0):
+        super().__init__(div_flow, rgb_max)
+        self.flownets_d = FlowNetSD()
+
+    def forward(self, im1, im2):
+        x1, x2 = rgb_norm(im1, im2, self.rgb_max)
+        return upsample_bilinear(self.flownets_d(torch.cat([x1, x2], 1)) * self.div_flow, 4)
+
+
+class FlowNet2CS(_Variant):
+    """FlowNetC, a warp, then one FlowNetS refinement (models.py:350-413)."""
+
+    def __init__(self, div_flow: float = 20.0, rgb_max: float = 1.0):
+        super().__init__(div_flow, rgb_max)
+        self.flownetc = FlowNetC()
+        self.flownets_1 = FlowNetS()
+
+    def _stage1(self, x1, x2):
+        c_flow = upsample_bilinear(self.flownetc(x1, x2) * self.div_flow, 4)
+        s1_flow2 = self.flownets_1(refine_input(x1, x2, c_flow, self.div_flow))
+        return upsample_bilinear(s1_flow2 * self.div_flow, 4)
+
+    def forward(self, im1, im2):
+        return self._stage1(*rgb_norm(im1, im2, self.rgb_max))
+
+
+class FlowNet2CSS(FlowNet2CS):
+    """FlowNet2CS and a second FlowNetS stage (models.py:415-470), whose
+    head upsamples nearest."""
+
+    def __init__(self, div_flow: float = 20.0, rgb_max: float = 1.0):
+        super().__init__(div_flow, rgb_max)
+        self.flownets_2 = FlowNetS()
+
+    def forward(self, im1, im2):
+        x1, x2 = rgb_norm(im1, im2, self.rgb_max)
+        s1_flow = self._stage1(x1, x2)
+        s2_flow2 = self.flownets_2(refine_input(x1, x2, s1_flow, self.div_flow))
+        return upsample_nearest(s2_flow2 * self.div_flow, 4)
+
+
+VARIANTS = {"FlowNet2C": FlowNet2C, "FlowNet2S": FlowNet2S, "FlowNet2SD": FlowNet2SD,
+            "FlowNet2CS": FlowNet2CS, "FlowNet2CSS": FlowNet2CSS}

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from fsvid2vid_tpu_torch.ops.batch_conv import batch_conv
 from fsvid2vid_tpu_torch.ops.image_ops import avg_pool, leaky_relu, resize_nearest
 from fsvid2vid_tpu_torch.ops.spectral_norm import spectral_normalize
+from fsvid2vid_tpu_torch.parallel import mesh
 
 
 class _SpectralNormed(nn.Module):
@@ -101,7 +102,16 @@ class SyncBatchNorm(nn.Module):
     (x - running_mean) * rsqrt(running_var + eps), then the affine map.  In
     train mode the statistics are the batch's over (B, H, W) (biased
     variance), and the running ones move with momentum 0.1 towards the batch
-    mean and the unbiased variance."""
+    mean and the unbiased variance.
+
+    In a process group of more than one rank (parallel/mesh.py) the batch is
+    the global one, as under JAX's GSPMD: each rank sums its count, x - m
+    and (x - m)^2 per channel, with m the running mean (the same on every
+    rank, so the sums keep their precision), and one differentiable
+    all-reduce adds them over the ranks, so that the gradient through the
+    statistics reaches every rank's input.  The running variance's unbiased
+    factor takes the global count.  torch.nn.SyncBatchNorm is not used: it
+    needs CUDA, and the CPU tests run their ranks on gloo."""
 
     eps = 1e-5
     momentum = 0.1
@@ -121,11 +131,15 @@ class SyncBatchNorm(nn.Module):
     def forward(self, x):
         if self.training:
             x32 = x.float()
-            var, mean = torch.var_mean(x32, (0, 2, 3), unbiased=False)
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            if mesh.world() > 1:
+                mean, var, unbiased = self._global_stats(x32, n)
+            else:
+                var, mean = torch.var_mean(x32, (0, 2, 3), unbiased=False)
+                unbiased = n / max(n - 1, 1)
             with torch.no_grad():
-                n = x.shape[0] * x.shape[2] * x.shape[3]
                 self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var * (n / max(n - 1, 1)), self.momentum)
+                self.running_var.lerp_(var * unbiased, self.momentum)
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
@@ -137,6 +151,19 @@ class SyncBatchNorm(nn.Module):
             shift = shift + self.bias.float()
         y = torch.addcmul(shift[:, None, None], x.float(), scale[:, None, None])
         return y.to(x.dtype)
+
+    def _global_stats(self, x32, n: int):
+        """Mean and biased variance of the global batch, and the unbiased
+        variance's factor N / (N - 1) for its count N."""
+        m = self.running_mean.detach().float()[:, None, None]
+        d = x32 - m
+        sums = mesh.all_reduce_sum(torch.cat([
+            d.sum((0, 2, 3)), (d * d).sum((0, 2, 3)), d.new_full((1,), float(n))]))
+        c = self.running_mean.shape[0]
+        n_all = sums[-1]
+        shift = sums[:c] / n_all
+        var = (sums[c:2 * c] / n_all - shift * shift).clamp_min(0.0)
+        return m[:, 0, 0] + shift, var, (n_all / (n_all - 1).clamp_min(1.0)).detach()
 
 
 class InstanceNorm(nn.Module):

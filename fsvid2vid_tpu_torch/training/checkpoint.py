@@ -19,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from fsvid2vid_tpu_torch.config import Config
+from fsvid2vid_tpu_torch.parallel import mesh
 from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
 
 NETWORKS = {"G": "netG", "Gf": "netGf", "D": "netD", "DT": "netDT", "Df": "netDf",
@@ -38,20 +39,24 @@ def _payload(state: TrainState, epoch: int, epoch_iter: int) -> Dict:
 
 def save(cfg: Config, state: TrainState, epoch: int, epoch_iter: int = 0,
          label: Optional[str] = None) -> str:
-    """Save under `label` (default 'latest'); also saves cfg JSON once."""
+    """Save under `label` (default 'latest'); also saves cfg JSON once.  In
+    a process group rank 0 alone writes (every rank holds the same state),
+    and every rank waits at a barrier until the file is in place."""
     base = ckpt_dir(cfg)
-    os.makedirs(base, exist_ok=True)
-    cfg_path = os.path.join(base, "config.json")
-    if not os.path.exists(cfg_path):
-        cfg.save(cfg_path)
     path = os.path.join(base, label or "latest")
-    tmp = f"{path}.tmp{os.getpid()}"
-    try:
-        torch.save(_payload(state, epoch, epoch_iter), tmp)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    if mesh.is_master():
+        os.makedirs(base, exist_ok=True)
+        cfg_path = os.path.join(base, "config.json")
+        if not os.path.exists(cfg_path):
+            cfg.save(cfg_path)
+        tmp = f"{path}.tmp{os.getpid()}"
+        try:
+            torch.save(_payload(state, epoch, epoch_iter), tmp)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    mesh.barrier()
     return path
 
 

@@ -44,6 +44,14 @@ The two steps differ as in the JAX package:
     G's and D's u / v advance twice per step, the G phase seeing the values
     the D phase left.  Both generations take the step's one VAE noise, as
     the JAX step reuses one rng (the reference draws two; ROADMAP.md C).
+
+In a process group (parallel/mesh.py) each rank steps on its rows of the
+global batch, and the step stays the global batch's: both updates average
+the gradients over the ranks before the optimizer step, batch norm takes
+the global statistics, the VAE's KL term (a sum over the batch, not a mean)
+is scaled by the world size so that the average is the global sum, each
+rank's VAE noise is its rows of the global batch's draw, and the losses
+returned are the global batch's.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ from fsvid2vid_tpu_torch.models.generator import Z_DIM, pick_ref
 from fsvid2vid_tpu_torch.models.input_process import (
     combine_fg_mask, encode_label, get_fg_mask, use_valid_labels)
 from fsvid2vid_tpu_torch.models.remat import remat
+from fsvid2vid_tpu_torch.parallel import mesh
 from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
 
 Tensor = torch.Tensor
@@ -227,7 +236,9 @@ def _g_losses(cfg, models, batch_n, prevs, flags, outputs, masks, refs):
         cfg, outputs["flow_mask"], outputs["warped"], tgt_image, fake_image,
         batch_n["tgt_label"], masks["fg"], masks["ref_fg"], body_mask_diff)
     if cfg.use_kld:
-        losses["G_KLD"] = kld_loss(outputs["mu"], outputs["logvar"]) * cfg.lambda_kld
+        # a sum over the batch: the ranks' mean of world x their sums is the global sum
+        losses["G_KLD"] = (kld_loss(outputs["mu"], outputs["logvar"])
+                           * cfg.lambda_kld * mesh.world())
     return sum(losses.values()), losses
 
 
@@ -256,12 +267,14 @@ def _d_losses(cfg, models, generated, batch_n, prevs, flags, outputs, masks, ref
 def with_vae_noise(cfg: Config, batch, generator: torch.Generator):
     """`batch` with the VAE's noise vae_eps (B, Z_DIM) when use_kld is on:
     drawn with torch.randn from `generator`, a CPU generator, and moved to
-    the batch's device.  Without use_kld the batch is returned as it is."""
+    the batch's device.  In a process group each rank draws the global
+    batch's noise and keeps its own rows, so the ranks together take what
+    one process would.  Without use_kld the batch is returned as it is."""
     if not cfg.use_kld:
         return batch
     image = batch["tgt_image"]
-    eps = torch.randn(image.shape[0], Z_DIM, generator=generator)
-    return dict(batch, vae_eps=eps.to(image.device))
+    eps = torch.randn(image.shape[0] * mesh.world(), Z_DIM, generator=generator)
+    return dict(batch, vae_eps=eps[mesh.local_rows(eps.shape[0])].to(image.device))
 
 
 def _prepare(cfg, state: TrainState, batch, flags: StepFlags):
@@ -319,6 +332,7 @@ def _frozen(modules, restore_buffers: bool):
 def _update(opt: torch.optim.Optimizer, total: Tensor):
     opt.zero_grad(set_to_none=True)
     total.backward()
+    mesh.all_reduce_grads(p for group in opt.param_groups for p in group["params"])
     opt.step()
 
 
@@ -330,6 +344,9 @@ def _finish(cfg, state, batch, prevs, outputs, refs, g, d):
     state.step += 1
     losses = {k: v.detach().float() for k, v in {
         **g_losses, **d_losses, "G_total": g_total, "D_total": d_total}.items()}
+    if mesh.is_initialized():   # each rank's mean over its rows -> the global batch's
+        keys = list(losses)
+        losses = dict(zip(keys, mesh.all_reduce_mean(torch.stack([losses[k] for k in keys]))))
     each = lambda xs: [_nhwc(x) for x in xs]
     visuals = dict(tgt_label=batch["tgt_label"], tgt_image=batch["tgt_image"],
                    ref_label=_nhwc(refs["label"]), ref_image=_nhwc(refs["image"]),

@@ -13,9 +13,14 @@ Curriculum:
     (base_dataset.py:22-27);
   * the learning rate decays linearly after `niter` epochs.
 
-One device, no mesh: data parallelism is a later port.  Per sequence the
-host does three things beside the steps: one copy of the batch to the
-device, one teacher call, and one transfer of the sequence's losses back.
+In a process group (parallel/mesh.py, one process per GPU) every rank runs
+this loop on its rows of each global batch (the loader's shard), starts
+from rank 0's weights, and steps in lockstep with the others
+(training/step.py); rank 0 alone writes checkpoints and every rank restores
+them.  The replay pool is one per rank, seeded from cfg.seed, as each JAX
+process keeps its own.  Per sequence the host does three things beside the
+steps: one copy of the batch to the device, one teacher call, and one
+transfer of the sequence's losses back.
 That transfer waits for the device, so the trainer times each sequence on
 the host clock without a synchronise of its own (`Trainer.timings`).
 """
@@ -28,6 +33,7 @@ import torch
 
 from fsvid2vid_tpu_torch import resolve_device
 from fsvid2vid_tpu_torch.config import Config
+from fsvid2vid_tpu_torch.parallel import mesh
 from fsvid2vid_tpu_torch.training import checkpoint as ckpt_lib
 from fsvid2vid_tpu_torch.training.state import (
     ModelBundle, TrainState, build_models, set_epoch_lr)
@@ -107,6 +113,7 @@ class Trainer:
         """The train state, resumed from `latest` with continue_train, or
         warm-started from load_pretrain's weights."""
         cfg = self.cfg
+        mesh.broadcast_state(self.models.generators() + self.models.discriminators())
         self.state = TrainState(cfg, self.models)
         restored = False
         if cfg.continue_train:

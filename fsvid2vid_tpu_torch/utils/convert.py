@@ -170,8 +170,9 @@ def discriminator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Ten
 
 def flownet2_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """The port's FlowNet2 state_dict (the reference checkpoint's names) from
-    the JAX FlowNet2 parameters.  `<layer>/conv` and `<layer>/deconv` are the
-    Sequential's `<layer>.0`; transposed-conv kernels (deconv*,
+    the JAX FlowNet2 parameters, or from those of any sub-variant (FlowNet2C,
+    2S, 2SD, 2CS, 2CSS: the same sub-network names).  `<layer>/conv` and
+    `<layer>/deconv` are the Sequential's `<layer>.0`; transposed-conv kernels (deconv*,
     upsampled_flow*) go from the flipped HWIO of the JAX formulation back to
     torch's (Cin, Cout, kh, kw)."""
     sd: Dict[str, torch.Tensor] = {}

@@ -2,8 +2,9 @@
 reference util/visualizer.py): loss_log.txt, image dumps to <ckpt>/web/images
 with an HTML gallery, and optional TensorBoard scalars.
 
-One process trains until data parallelism is ported, so it is the master
-and writes everything (util/distributed.py:45-52 master_only)."""
+In a process group only rank 0, the master, writes or prints anything
+(util/distributed.py:45-52 master_only); a single process is its own
+master."""
 from __future__ import annotations
 
 import os
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from fsvid2vid_tpu_torch.config import Config
+from fsvid2vid_tpu_torch.parallel.mesh import is_master
 from fsvid2vid_tpu_torch.utils.html import HTML
 from fsvid2vid_tpu_torch.utils.imaging import (
     save_image, tensor2flow, tensor2im, tensor2label, tensor2pose)
@@ -59,10 +61,6 @@ def display_visuals(cfg: Config, vis) -> Dict[str, Optional[np.ndarray]]:
         if m is not None:
             out[f"flow_mask_{names[i]}"] = tensor2im(m, normalize=False, tile=True)
     return out
-
-
-def is_master() -> bool:
-    return True
 
 
 class Visualizer:

@@ -5,11 +5,12 @@ fsvid2vid_tpu_torch.cli.test` on its checkpoint; the same for pose
 (`--dataset_mode fewshot_pose` with the face discriminator and remat) and
 street (`--dataset_mode fewshot_street`, one-hot labels) on synthetic
 datasets, and `cli.test --finetune` from the street checkpoint with its
-discriminators restored; every flag the port cannot honour yet, and a
-missing card, exit non-zero with a message naming why, and the flags it
-honours since the pose slices (--refine_face among them) reach the
-config."""
+discriminators restored; the distributed flags join a one-rank group, and
+an incomplete combination of them, like a missing card, exits non-zero with
+a message naming why; the flags the port honours since the pose slices
+(--refine_face among them) reach the config."""
 import os
+import socket
 import subprocess
 import sys
 
@@ -105,21 +106,50 @@ def test_continue_train_resumes_in_process(data, tmp_path):
     assert resumed.trainer.state.step == first.trainer.state.step + 2 * 2
 
 
-UNPORTED = [
-    (["--distributed"], "A.12"), (["--coordinator_address", "h:1"], "A.12"),
-    (["--num_processes", "2"], "A.12"), (["--process_id", "1"], "A.12"),
-]
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
-@pytest.mark.parametrize("flags,item", UNPORTED, ids=[f[0][2:] + (f"_{f[1]}" if len(f) > 1 else "")
-                                                     for f, _ in UNPORTED])
-def test_unported_flags_exit_naming_their_item(data, tmp_path, capsys, flags, item):
-    argv = train_argv(data, str(tmp_path), "--device", "cpu") + flags
-    with pytest.raises(SystemExit) as e:
-        cli_train.main(argv)
-    assert e.value.code != 0
-    assert f"ROADMAP.md {item}" in capsys.readouterr().err
-    assert not os.path.exists(os.path.join(str(tmp_path), "smoke"))
+DISTRIBUTED = {
+    # torchrun's environment for a world of one, over gloo
+    "torchrun_env": (["--distributed"], None),
+    "coordinator": (["--coordinator_address", "FILE", "--num_processes", "1",
+                     "--process_id", "0"], None),
+    "no_process_id": (["--coordinator_address", "FILE", "--num_processes", "1"],
+                      "--coordinator_address needs --process_id"),
+    "no_num_processes": (["--coordinator_address", "FILE", "--process_id", "0"],
+                         "--coordinator_address needs --num_processes"),
+}
+
+
+@pytest.mark.parametrize("case", list(DISTRIBUTED))
+def test_distributed_flags(data, tmp_path, capsys, monkeypatch, case):
+    """The four distributed flags: torchrun's environment or explicit
+    coordinates join a one-rank gloo group and train, leaving the group at
+    the end; an incomplete combination exits non-zero naming the missing
+    flag before any file is written."""
+    flags, error = DISTRIBUTED[case]
+    flags = [f"file://{tmp_path}/store" if f == "FILE" else f for f in flags]
+    if case == "torchrun_env":
+        for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                         MASTER_PORT=str(_free_port())).items():
+            monkeypatch.setenv(k, v)
+    argv = train_argv(data, str(tmp_path), "--device", "cpu", "--niter", "1") + flags
+    if error:
+        with pytest.raises(SystemExit) as e:
+            cli_train.main(argv)
+        assert e.value.code != 0
+        assert error in capsys.readouterr().err
+        assert not os.path.exists(os.path.join(str(tmp_path), "smoke"))
+        return
+    from fsvid2vid_tpu_torch.parallel import mesh
+    from fsvid2vid_tpu_torch.training.checkpoint import load
+    run = cli_train.main(argv)
+    assert not mesh.is_initialized()
+    assert run.loader.num_shards == 1 and run.trainer.state.step == 2
+    assert load(run.cfg)["cursor"] == {"epoch": 2, "epoch_iter": 0}
 
 
 def test_adaptive_conv_flag_trains(data, tmp_path):
