@@ -100,6 +100,7 @@ printing any result.  It imports nothing of JAX or of fsvid2vid_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1118,10 +1119,33 @@ def trained_tensors(trainer):
     return out
 
 
-def sequence_times(timings):
-    return [{"epoch": t["epoch"], "iter": t["iter"], "frames": t["frames"],
-             "wait_ms": t["wait_ms"], "seq_ms": t["ms"], "ms_per_step": t["ms"] / t["frames"]}
-            for t in timings]
+@contextlib.contextmanager
+def sequence_times():
+    """Records the port's spans while the block runs (utils/profiling.py)
+    and yields a list that, when the block ends, holds per training sequence
+    it ran: its frames, wait_ms (the data iterator), seq_ms (from its batch
+    to its losses on the host) and ms_per_step."""
+    from fsvid2vid_tpu_torch.utils import profiling
+    first = len(profiling.spans())
+    was = profiling.record(True)
+    times = []
+    try:
+        yield times
+    finally:
+        profiling.record(was)
+    records = profiling.spans()
+    children = {}
+    for r in records[first:]:
+        children.setdefault(r.parent, {}).setdefault(r.name, []).append(r)
+    for i in range(first, len(records)):
+        kids = children.get(i, {})
+        if records[i].name != "fsv.train.sequence" or "fsv.train.step" not in kids:
+            continue
+        wait, done = kids["fsv.train.wait"][0], kids["fsv.train.losses_to_host"][0]
+        seq_ms = (done.end_ns - wait.end_ns) / 1e6
+        frames = len(kids["fsv.train.step"])
+        times.append({"frames": frames, "wait_ms": (wait.end_ns - wait.start_ns) / 1e6,
+                      "seq_ms": seq_ms, "ms_per_step": seq_ms / frames})
 
 
 def profile_host(fn, top=8):
@@ -1178,7 +1202,8 @@ def phase_cli(torch):
         torch.cuda.reset_peak_memory_stats()
         zero_counts(cv)
         t0 = time.perf_counter()
-        run = cli_train.main(argv)
+        with sequence_times() as sequences:
+            run = cli_train.main(argv)
         torch.cuda.synchronize()
         res["train_seconds"] = time.perf_counter() - t0
         res["launches_train"] = check_counts(cv, "cli train", CLI_STEPS * 1 + CLI_STEPS * 2)
@@ -1196,7 +1221,7 @@ def phase_cli(torch):
         if sorted(trainer.epoch_metrics) != [1, 2] or bad:
             raise AssertionError(f"cli train epochs {sorted(trainer.epoch_metrics)}, "
                                  f"non-finite losses {bad}")
-        res["sequences"] = sequence_times(trainer.timings)
+        res["sequences"] = sequences
 
         # ---- resume at epoch 3 with the saved state, then finish it ----
         saved = {k: v.clone() for k, v in trained_tensors(trainer).items()}
@@ -1215,13 +1240,14 @@ def phase_cli(torch):
             raise AssertionError(f"resumed state differs from the saved one: {differ[:5]}")
         res["resume"] = {"start_epoch": trainer.start_epoch, "tensors_equal": len(saved)}
         del saved
-        trainer.fit(resumed.make_data_iter, resumed.teacher)
+        with sequence_times() as resumed_sequences:
+            trainer.fit(resumed.make_data_iter, resumed.teacher)
         resumed.vis.close()
         res["resume"]["launches"] = check_counts(cv, "cli resume", CLI_STEPS * 2)
         if sorted(trainer.epoch_metrics) != [3] or not all(
                 math.isfinite(v) for v in trainer.epoch_metrics[3].values()):
             raise AssertionError(f"resumed epoch: {trainer.epoch_metrics}")
-        res["resume"]["sequences"] = sequence_times(trainer.timings)
+        res["resume"]["sequences"] = resumed_sequences
 
         # ---- the loader's threads against batches already loaded ----
         loader = SequenceLoader(cfg, steps_per_epoch=CLI_TURN_SEQS, seed=cfg.seed)
@@ -1233,10 +1259,9 @@ def phase_cli(torch):
             lambda: loader._batch(loader.dataset, 3, 0))
         turns = []
         for turn in CLI_TURNS:
-            n0 = len(trainer.timings)
-            trainer.train_epoch(3, loader.epoch(3) if turn == "loader" else iter(loaded),
-                                resumed.teacher)
-            times = sequence_times(trainer.timings[n0:])
+            with sequence_times() as times:
+                trainer.train_epoch(3, loader.epoch(3) if turn == "loader" else iter(loaded),
+                                    resumed.teacher)
             turns.append({"turn": turn, "ms_per_step": [t["ms_per_step"] for t in times],
                           "wait_ms": [t["wait_ms"] for t in times]})
         mean = lambda kind: (sum(sum(t["ms_per_step"]) for t in turns if t["turn"] == kind)
@@ -1379,7 +1404,8 @@ def phase_pose_cli(torch, tmp):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(cv)
     t0 = time.perf_counter()
-    run = cli_train.main(argv)
+    with sequence_times() as sequences:
+        run = cli_train.main(argv)
     torch.cuda.synchronize()
     res["train_seconds"] = time.perf_counter() - t0
     res["launches_train"] = check_counts(cv, "pose cli train", POSE_STEPS * 1 + POSE_STEPS * 2)
@@ -1406,7 +1432,7 @@ def phase_pose_cli(torch, tmp):
     if sorted(trainer.epoch_metrics) != [1, 2] or bad or face:
         raise AssertionError(f"pose cli epochs {sorted(trainer.epoch_metrics)}, "
                              f"non-finite losses {bad}, face D losses not > 0 {face}")
-    res["sequences"] = sequence_times(trainer.timings)
+    res["sequences"] = sequences
     res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
 
     # ---- the teacher on a loaded 2-frame batch (two flow computations) ----
@@ -1583,7 +1609,8 @@ def phase_street_cli(torch):
         torch.cuda.reset_peak_memory_stats()
         zero_counts(cv)
         t0 = time.perf_counter()
-        run = cli_train.main(argv)
+        with sequence_times() as sequences:
+            run = cli_train.main(argv)
         torch.cuda.synchronize()
         res["train_seconds"] = time.perf_counter() - t0
         res["launches_train"] = check_counts(cv, "street cli train", STREET_STEPS)
@@ -1610,7 +1637,7 @@ def phase_street_cli(torch):
         if sorted(trainer.epoch_metrics) != [1, 2] or bad:
             raise AssertionError(f"street cli epochs {sorted(trainer.epoch_metrics)}, "
                                  f"non-finite losses {bad}, {trainer.epoch_metrics}")
-        res["sequences"] = sequence_times(trainer.timings)
+        res["sequences"] = sequences
         res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
         res["wait_ms"] = [t["wait_ms"] for t in res["sequences"]]
 
@@ -2041,7 +2068,8 @@ def phase_pose_refine_cli(torch, tmp):
     run = cli_train.setup(parser.parse_args(argv), parser)
     cfg, trainer = run.cfg, run.trainer
     gf0 = [p.detach().clone() for p in trainer.models.netGf.parameters()]
-    trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
+    with sequence_times() as sequences:
+        trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
     run.vis.close()
     torch.cuda.synchronize()
     res["train_seconds"] = time.perf_counter() - t0
@@ -2061,7 +2089,7 @@ def phase_pose_refine_cli(torch, tmp):
     res["gf_params_moved"] = [sum(int(not torch.equal(p, q)) for p, q in zip(
         gf.parameters(), gf0)), len(gf0)]
     res["epoch_losses"] = trainer.epoch_metrics
-    res["sequences"] = sequence_times(trainer.timings)
+    res["sequences"] = sequences
     res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
     bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
            if not math.isfinite(v)]
@@ -2087,10 +2115,11 @@ def phase_pose_refine_cli(torch, tmp):
     res["resume"] = {"start_epoch": trainer.start_epoch, "tensors_equal": len(saved),
                      "gf_tensors": sum(k.startswith("netGf.") for k in saved)}
     del saved
-    trainer.fit(resumed.make_data_iter, resumed.teacher)
+    with sequence_times() as resumed_sequences:
+        trainer.fit(resumed.make_data_iter, resumed.teacher)
     resumed.vis.close()
     res["resume"]["launches"] = check_counts(cv, "pose refine resume", POSE_STEPS * 2)
-    res["resume"]["sequences"] = sequence_times(trainer.timings)
+    res["resume"]["sequences"] = resumed_sequences
     if sorted(trainer.epoch_metrics) != [3] or not all(
             math.isfinite(v) for v in trainer.epoch_metrics[3].values()):
         raise AssertionError(f"pose refine resumed epoch: {trainer.epoch_metrics}")
@@ -2372,7 +2401,8 @@ def phase_cli_adaptive(torch, tmp):
     t0 = time.perf_counter()
     run = cli_train.setup(parser.parse_args(argv), parser)
     initial = {k: v.detach().clone() for k, v in adaptive_tensors(run.trainer.models).items()}
-    run.trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
+    with sequence_times() as sequences:
+        run.trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
     run.vis.close()
     torch.cuda.synchronize()
     res["train_seconds"] = time.perf_counter() - t0
@@ -2388,7 +2418,7 @@ def phase_cli_adaptive(torch, tmp):
              for k, v in adaptive_tensors(trainer.models).items()}
     res["adaptive_tensors_moved"] = [sum(moved.values()), len(moved)]
     res["epoch_losses"] = trainer.epoch_metrics
-    res["sequences"] = sequence_times(trainer.timings)
+    res["sequences"] = sequences
     bad = [(e, k) for e, m in trainer.epoch_metrics.items() for k, v in m.items()
            if not math.isfinite(v)]
     if sorted(trainer.epoch_metrics) != [1, 2] or bad:
@@ -2415,10 +2445,11 @@ def phase_cli_adaptive(torch, tmp):
                              f"differs: {differ[:5]}")
     res["resume"] = {"start_epoch": trainer.start_epoch, "tensors_equal": len(saved)}
     del saved
-    trainer.fit(resumed.make_data_iter, resumed.teacher)
+    with sequence_times() as resumed_sequences:
+        trainer.fit(resumed.make_data_iter, resumed.teacher)
     resumed.vis.close()
     res["resume"]["launches"] = check_counts(cv, "adaptive cli resume", CLI_STEPS * 2)
-    res["resume"]["sequences"] = sequence_times(trainer.timings)
+    res["resume"]["sequences"] = resumed_sequences
 
     # ---- turns: this model against phase_cli's on the same loaded batches,
     # with the same teacher ----
@@ -2433,10 +2464,9 @@ def phase_cli_adaptive(torch, tmp):
     turns = []
     for turn in ADAPTIVE_TURNS:
         tr = trainer if turn == "adaptive" else plain
-        n0 = len(tr.timings)
-        tr.train_epoch(3, iter(loaded), resumed.teacher)
-        turns.append({"turn": turn, "ms_per_step": [
-            t["ms_per_step"] for t in sequence_times(tr.timings[n0:])]})
+        with sequence_times() as times:
+            tr.train_epoch(3, iter(loaded), resumed.teacher)
+        turns.append({"turn": turn, "ms_per_step": [t["ms_per_step"] for t in times]})
     # one more temporal sequence of each model under torch.profiler: kernels
     # and launches, the grouped convolutions of the generated weights among them
     res["profiled_sequence"] = {
@@ -2806,7 +2836,8 @@ def phase_cli_k8(torch, tmp, chunked):
     cfg, trainer = run.cfg, run.trainer
     atn = {n: p.detach().clone() for n, p in trainer.models.netG.named_parameters()
            if n.startswith("atn_")}
-    trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
+    with sequence_times() as sequences:
+        trainer.fit(run.make_data_iter, flow_teacher=run.teacher)
     run.vis.close()
     torch.cuda.synchronize()
     res["train_seconds"] = time.perf_counter() - t0
@@ -2826,7 +2857,7 @@ def phase_cli_k8(torch, tmp, chunked):
     if sorted(trainer.epoch_metrics) != [1, 2] or bad:
         raise AssertionError(f"K = 8 cli epochs {sorted(trainer.epoch_metrics)}, "
                              f"non-finite losses {bad}")
-    res["sequences"] = sequence_times(trainer.timings)
+    res["sequences"] = sequences
     res["ms_per_step"] = [t["ms_per_step"] for t in res["sequences"][1:]]
 
     # ---- one more temporal sequence, its last step under torch.profiler ----

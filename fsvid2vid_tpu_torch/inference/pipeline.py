@@ -33,6 +33,7 @@ from fsvid2vid_tpu_torch.inference.fold import fold_spectral_norm
 from fsvid2vid_tpu_torch.models.face_refiner import check_refine_face, refine_face_region
 from fsvid2vid_tpu_torch.models.generator import FewShotGenerator, pick_ref
 from fsvid2vid_tpu_torch.models.input_process import encode_label, use_valid_labels
+from fsvid2vid_tpu_torch.utils.profiling import span
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -131,48 +132,50 @@ class InferencePipeline:
 
     def reset(self, ref_labels, ref_images, first_label=None):
         """t = 0: cache the reference encoding."""
-        cfg, run = self.cfg, self._run
-        ref_raw, ref_valid = run.labels(ref_labels)
-        ref_images = run.tensor(ref_images)
-        self._refs = (ref_raw, ref_valid, ref_images)
-        if first_label is None:
-            first_label = torch.zeros_like(ref_valid[:, 0])
-        else:
-            first_label = run.labels(first_label)[1]
-        with run.context():
-            self.cache = run.encode(ref_valid, ref_images, first_label)
-        b, _, h, w, cl = ref_valid.shape
-        n = max(1, cfg.n_frames_G - 1)
-        self.prevs = {
-            "label": torch.zeros(b, h, w, cl * n, device=run.device),
-            "fake": torch.zeros(b, h, w, 3 * n, device=run.device),
-        }
-        self.t = 0
+        with span("fsv.serve.reset"):
+            cfg, run = self.cfg, self._run
+            ref_raw, ref_valid = run.labels(ref_labels)
+            ref_images = run.tensor(ref_images)
+            self._refs = (ref_raw, ref_valid, ref_images)
+            if first_label is None:
+                first_label = torch.zeros_like(ref_valid[:, 0])
+            else:
+                first_label = run.labels(first_label)[1]
+            with run.context():
+                self.cache = run.encode(ref_valid, ref_images, first_label)
+            b, _, h, w, cl = ref_valid.shape
+            n = max(1, cfg.n_frames_G - 1)
+            self.prevs = {
+                "label": torch.zeros(b, h, w, cl * n, device=run.device),
+                "fake": torch.zeros(b, h, w, 3 * n, device=run.device),
+            }
+            self.t = 0
 
     def step(self, label) -> Dict[str, torch.Tensor]:
         """One frame.  Returns fake_image (B, H, W, 3) and the flows, masks,
         raw image and warped images of the frame, channel-last; at K > 1
         also ref_idx (B,) and atn (B, K), the references' attention masses."""
-        if self._refs is None:
-            raise RuntimeError("call reset() first")
-        cfg, run = self.cfg, self._run
-        label = run.labels(label)
-        has_prev = self.t > 0
-        with run.context():
-            out = run.synth(self.cache, label, self._refs,
-                            self.prevs["label"] if has_prev else None,
-                            self.prevs["fake"] if has_prev else None,
-                            has_prev and cfg.n_frames_G > 1)
-        fake = out["img_final"]
-        self.prevs = {"label": _roll(self.prevs["label"], label[1]),
-                      "fake": _roll(self.prevs["fake"], fake)}
-        self.t += 1
-        return dict(fake_image=fake,
-                    flow=[_nhwc(f) for f in out["flow"]],
-                    flow_mask=[_nhwc(f) for f in out["flow_mask"]],
-                    img_raw=_nhwc(out.get("img_raw")),
-                    warped=[_nhwc(f) for f in out["img_warp"]],
-                    ref_idx=out.get("ref_idx"), atn=out.get("atn"))
+        with span("fsv.serve.step"):
+            if self._refs is None:
+                raise RuntimeError("call reset() first")
+            cfg, run = self.cfg, self._run
+            label = run.labels(label)
+            has_prev = self.t > 0
+            with run.context():
+                out = run.synth(self.cache, label, self._refs,
+                                self.prevs["label"] if has_prev else None,
+                                self.prevs["fake"] if has_prev else None,
+                                has_prev and cfg.n_frames_G > 1)
+            fake = out["img_final"]
+            self.prevs = {"label": _roll(self.prevs["label"], label[1]),
+                          "fake": _roll(self.prevs["fake"], fake)}
+            self.t += 1
+            return dict(fake_image=fake,
+                        flow=[_nhwc(f) for f in out["flow"]],
+                        flow_mask=[_nhwc(f) for f in out["flow_mask"]],
+                        img_raw=_nhwc(out.get("img_raw")),
+                        warped=[_nhwc(f) for f in out["img_warp"]],
+                        ref_idx=out.get("ref_idx"), atn=out.get("atn"))
 
 
 def run_sequence(cfg: Config, netG: FewShotGenerator, labels, ref_labels,

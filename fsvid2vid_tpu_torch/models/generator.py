@@ -62,6 +62,7 @@ from fsvid2vid_tpu_torch.ops.attention_kernel import (MAX_C, chunked_ref_attenti
                                                        flash_ref_attention)
 from fsvid2vid_tpu_torch.ops.image_ops import adaptive_avg_pool, leaky_relu, upsample_nearest
 from fsvid2vid_tpu_torch.ops.warp import flow_warp
+from fsvid2vid_tpu_torch.utils.profiling import span
 
 
 def pick_ref(refs: torch.Tensor, ref_idx: Optional[torch.Tensor]) -> torch.Tensor:
@@ -404,20 +405,21 @@ class FewShotGenerator(nn.Module):
         """img_refs / label_refs: (B, K, C, H, W).  Returns (x, gen) with gen =
         dict(embedding_weights, norm_weights, conv_weights, atn, atn_vis,
         ref_idx, mu, logvar); x is the bottleneck after `_compute_kld`."""
-        img_flat = img_refs.flatten(0, 1)
-        label_flat = label_refs.flatten(0, 1)
-        x, encoded_ref, atn, atn_vis, ref_idx = self._reference_encoding(
-            img_flat, label_flat, label, prefix=prefix)
-        x, mu, logvar = self._compute_kld(x, label, img_coarse, vae_eps)
-        embedding_weights, norm_weights, conv_weights = [], [], []
-        last = len(encoded_ref) - 1
-        for i in range(self.n_adaptive):
-            if self.adap_spade:
-                ew, nw = self._get_spade_weights(encoded_ref[min(last, i + 1)], i)
-                embedding_weights.append(ew)
-                norm_weights.append(nw)
-            if self.adap_conv:
-                conv_weights.append(self._get_conv_weights(encoded_ref[min(last, i)], i))
+        with span("fsv.gen.weights"):
+            img_flat = img_refs.flatten(0, 1)
+            label_flat = label_refs.flatten(0, 1)
+            x, encoded_ref, atn, atn_vis, ref_idx = self._reference_encoding(
+                img_flat, label_flat, label, prefix=prefix)
+            x, mu, logvar = self._compute_kld(x, label, img_coarse, vae_eps)
+            embedding_weights, norm_weights, conv_weights = [], [], []
+            last = len(encoded_ref) - 1
+            for i in range(self.n_adaptive):
+                if self.adap_spade:
+                    ew, nw = self._get_spade_weights(encoded_ref[min(last, i + 1)], i)
+                    embedding_weights.append(ew)
+                    norm_weights.append(nw)
+                if self.adap_conv:
+                    conv_weights.append(self._get_conv_weights(encoded_ref[min(last, i)], i))
         return x, dict(embedding_weights=embedding_weights,
                        norm_weights=norm_weights, conv_weights=conv_weights, atn=atn,
                        atn_vis=atn_vis, ref_idx=ref_idx, mu=mu, logvar=logvar)
@@ -543,16 +545,19 @@ class FewShotGenerator(nn.Module):
     def _synthesize_from(self, x, gen, label, label_refs, img_refs,
                          prev_label, prev_img, warp_prev):
         cfg = self.cfg
-        encoded_label = self.label_embedding(
-            label, weights=gen["embedding_weights"] if self.adap_embed else None)
-        flow, flow_mask, img_warp, ds_ref = self.flow_generation(
-            label, label_refs, img_refs, prev_label, prev_img, gen["ref_idx"],
-            warp_prev)
-        raw_label = None
-        if cfg.add_raw_output_loss and cfg.spade_combine:
-            raw_label = encoded_label[:cfg.n_sc_layers]
-        encoded_label = self._spade_combine(encoded_label, ds_ref)
-        img_final, img_raw = self._main_branch(x, encoded_label, gen, raw_label)
+        with span("fsv.gen.main"):
+            encoded_label = self.label_embedding(
+                label, weights=gen["embedding_weights"] if self.adap_embed else None)
+        with span("fsv.gen.flow"):
+            flow, flow_mask, img_warp, ds_ref = self.flow_generation(
+                label, label_refs, img_refs, prev_label, prev_img, gen["ref_idx"],
+                warp_prev)
+        with span("fsv.gen.main"):
+            raw_label = None
+            if cfg.add_raw_output_loss and cfg.spade_combine:
+                raw_label = encoded_label[:cfg.n_sc_layers]
+            encoded_label = self._spade_combine(encoded_label, ds_ref)
+            img_final, img_raw = self._main_branch(x, encoded_label, gen, raw_label)
         return img_final, img_raw, flow, flow_mask, img_warp
 
     # ------------------------------------------------------------------
@@ -621,8 +626,9 @@ class FewShotGenerator(nn.Module):
         """K > 1 serving cache: the label-independent encoder prefix and the
         attention keys; pass it as `prefix` to forward."""
         self._check_eval()
-        return self._ref_encode_prefix(img_refs.flatten(0, 1),
-                                       label_refs.flatten(0, 1))
+        with span("fsv.gen.weights"):
+            return self._ref_encode_prefix(img_refs.flatten(0, 1),
+                                           label_refs.flatten(0, 1))
 
     def synthesize(self, label, label_refs, img_refs, cache, prev_label=None,
                    prev_img=None, warp_prev: bool = False) -> Dict:

@@ -30,9 +30,11 @@ checked and timed beside it.  Each is built with nvcc for sm_90a on first
 use and loaded with ctypes (ops/cuda_build.py).  `cost_volume_cuda`
 launches the tensor-core kernel or raises, with no fallback to the other
 kernel; `correlation` runs the plain version only for CPU tensors.  The
-backward is plain PyTorch on every device, as the JAX package's VJP is a
-plain XLA shift-and-reduce: the flow teacher is frozen and no training path
-differentiates through it.
+dispatch is the torch operator fsv::cost_volume, registered when this
+module is imported (its fake implementation gives the output shape and
+launches nothing).  The backward is plain PyTorch on every device, as the
+JAX package's VJP is a plain XLA shift-and-reduce: the flow teacher is
+frozen and no training path differentiates through it.
 """
 from __future__ import annotations
 
@@ -275,24 +277,48 @@ def cost_volume_backward_plain(f1, f2, grad, max_displacement: int, stride: int)
     return (df1 * (1.0 / c)).to(f1.dtype), (df2 * (1.0 / c)).to(f2.dtype)
 
 
-class _Correlation(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, f1, f2, max_displacement, stride):
-        ctx.save_for_backward(f1, f2)
-        ctx.args = (max_displacement, stride)
-        if f1.device.type == "cpu":
-            return cost_volume_plain(f1, f2, max_displacement, stride)
-        return cost_volume_cuda(f1, f2, max_displacement, stride)
+# B2 as a registered operator, so that a profiler's trace shows each launch
+# with its shapes and device time, as it shows fsv::flash_ref_attention.
+# The CUDA implementation looks `_launch_tc` up in this module at each call,
+# so that a wrapper put in its place sees every launch.
+@torch.library.custom_op("fsv::cost_volume", mutates_args=())
+def cost_volume_op(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int,
+                   stride: int) -> torch.Tensor:
+    """CUDA: the tensor-core kernel, launched and counted, or an error."""
+    return _launch_tc(f1, f2, max_displacement, stride)
 
-    @staticmethod
-    def backward(ctx, grad):
-        f1, f2 = ctx.saved_tensors
-        df1, df2 = cost_volume_backward_plain(f1, f2, grad, *ctx.args)
-        return df1, df2, None, None
+
+@cost_volume_op.register_kernel("cpu")
+def _(f1, f2, max_displacement, stride):
+    return cost_volume_plain(f1, f2, max_displacement, stride)
+
+
+@cost_volume_op.register_fake
+def _(f1, f2, max_displacement, stride):
+    _check_args(f1, f2, max_displacement, stride)
+    b, _, h, w = f1.shape
+    d = 2 * (max_displacement // stride) + 1
+    return f1.new_empty(b, d * d, h, w)
+
+
+def _save_inputs(ctx, inputs, output):
+    f1, f2, max_displacement, stride = inputs
+    ctx.save_for_backward(f1, f2)
+    ctx.args = (max_displacement, stride)
+
+
+def _backward(ctx, grad):
+    f1, f2 = ctx.saved_tensors
+    df1, df2 = cost_volume_backward_plain(f1, f2, grad, *ctx.args)
+    return df1, df2, None, None
+
+
+cost_volume_op.register_autograd(_backward, setup_context=_save_inputs)
 
 
 def correlation(f1: torch.Tensor, f2: torch.Tensor, max_displacement: int = 20,
                 stride: int = 2) -> torch.Tensor:
-    """Differentiable cost volume: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors; backward in plain PyTorch on both."""
-    return _Correlation.apply(f1, f2, max_displacement, stride)
+    """Differentiable cost volume through the registered operator
+    fsv::cost_volume: the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors; backward in plain PyTorch on both."""
+    return cost_volume_op(f1, f2, max_displacement, stride)

@@ -71,6 +71,7 @@ from fsvid2vid_tpu_torch.models.input_process import (
 from fsvid2vid_tpu_torch.models.remat import remat
 from fsvid2vid_tpu_torch.parallel import mesh
 from fsvid2vid_tpu_torch.training.state import ModelBundle, TrainState
+from fsvid2vid_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -362,36 +363,52 @@ def train_step(cfg: Config, state: TrainState, batch, prevs, flags: StepFlags,
     forward.  Updates `state` in place; returns (new_prevs, losses, visuals)
     with losses a dict of 0-d f32 tensors under the reference's names plus
     G_total and D_total."""
-    models, batch, batch_n = _prepare(cfg, state, batch, flags)
-    with _autocast(batch_n["tgt_image"].device, compute_dtype):
-        outputs, masks, refs = generate_images(cfg, models, batch, prevs, flags)
-        d = _d_losses(cfg, models, _detached(outputs, batch, flags), batch_n, prevs,
-                      flags, outputs, masks, refs)
-    _update(state.opt_D, d[0])
-    # the G phase sees the updated D; its pass advances D's u / v for this
-    # pass only, and D takes no gradient from it
-    with _frozen(models.discriminators(), restore_buffers=True):
+    with span("fsv.train.step"):
+        models, batch, batch_n = _prepare(cfg, state, batch, flags)
         with _autocast(batch_n["tgt_image"].device, compute_dtype):
-            g = _g_losses(cfg, models, batch_n, prevs, flags, outputs, masks, refs)
-        _update(state.opt_G, g[0])
-    return _finish(cfg, state, batch, prevs, outputs, refs, g, d)
+            with span("fsv.train.generate"):
+                outputs, masks, refs = generate_images(cfg, models, batch, prevs, flags)
+            with span("fsv.train.d_losses"):
+                d = _d_losses(cfg, models, _detached(outputs, batch, flags), batch_n, prevs,
+                              flags, outputs, masks, refs)
+        with span("fsv.train.update_D"):
+            _update(state.opt_D, d[0])
+        # the G phase sees the updated D; its pass advances D's u / v for this
+        # pass only, and D takes no gradient from it
+        with _frozen(models.discriminators(), restore_buffers=True):
+            with _autocast(batch_n["tgt_image"].device, compute_dtype), \
+                    span("fsv.train.g_losses"):
+                g = _g_losses(cfg, models, batch_n, prevs, flags, outputs, masks, refs)
+            with span("fsv.train.update_G"):
+                _update(state.opt_G, g[0])
+        with span("fsv.train.finish"):
+            return _finish(cfg, state, batch, prevs, outputs, refs, g, d)
 
 
 def train_step_faithful(cfg: Config, state: TrainState, batch, prevs,
                         flags: StepFlags, compute_dtype: str = "float32"):
     """The reference's alternation with two generator forwards per step (see
-    the module docstring).  Same arguments and results as `train_step`."""
-    models, batch, batch_n = _prepare(cfg, state, batch, flags)
-    device = batch_n["tgt_image"].device
-    with _autocast(device, compute_dtype):
-        with torch.no_grad():
-            outputs_d, masks, refs = generate_images(cfg, models, batch, prevs, flags)
-        d = _d_losses(cfg, models, _detached(outputs_d, batch, flags), batch_n, prevs,
-                      flags, outputs_d, masks, refs)
-    _update(state.opt_D, d[0])
-    with _frozen(models.discriminators(), restore_buffers=False):
+    the module docstring).  Same arguments and results as `train_step`; its
+    step span holds a second fsv.train.generate, the G phase's, before
+    fsv.train.g_losses."""
+    with span("fsv.train.step"):
+        models, batch, batch_n = _prepare(cfg, state, batch, flags)
+        device = batch_n["tgt_image"].device
         with _autocast(device, compute_dtype):
-            outputs, masks, refs = generate_images(cfg, models, batch, prevs, flags)
-            g = _g_losses(cfg, models, batch_n, prevs, flags, outputs, masks, refs)
-        _update(state.opt_G, g[0])
-    return _finish(cfg, state, batch, prevs, outputs, refs, g, d)
+            with torch.no_grad(), span("fsv.train.generate"):
+                outputs_d, masks, refs = generate_images(cfg, models, batch, prevs, flags)
+            with span("fsv.train.d_losses"):
+                d = _d_losses(cfg, models, _detached(outputs_d, batch, flags), batch_n,
+                              prevs, flags, outputs_d, masks, refs)
+        with span("fsv.train.update_D"):
+            _update(state.opt_D, d[0])
+        with _frozen(models.discriminators(), restore_buffers=False):
+            with _autocast(device, compute_dtype):
+                with span("fsv.train.generate"):
+                    outputs, masks, refs = generate_images(cfg, models, batch, prevs, flags)
+                with span("fsv.train.g_losses"):
+                    g = _g_losses(cfg, models, batch_n, prevs, flags, outputs, masks, refs)
+            with span("fsv.train.update_G"):
+                _update(state.opt_G, g[0])
+        with span("fsv.train.finish"):
+            return _finish(cfg, state, batch, prevs, outputs, refs, g, d)

@@ -20,14 +20,19 @@ from rank 0's weights, and steps in lockstep with the others
 them.  The replay pool is one per rank, seeded from cfg.seed, as each JAX
 process keeps its own.  Per sequence the host does three things beside the
 steps: one copy of the batch to the device, one teacher call, and one
-transfer of the sequence's losses back.
-That transfer waits for the device, so the trainer times each sequence on
-the host clock without a synchronise of its own (`Trainer.timings`).
+transfer of the sequence's losses back.  That transfer waits for the
+device, so the spans around a sequence (utils/profiling.py) time it on the
+host clock without a synchronise of their own: fsv.train.sequence holds
+fsv.train.wait (the data iterator), fsv.train.to_device, fsv.train.teacher,
+the frames' fsv.train.step, fsv.train.losses_to_host and, when one is
+written, fsv.train.checkpoint.  When the iterator ends, the last
+fsv.train.sequence holds only the wait that learned so.
 """
 from __future__ import annotations
 
+import itertools
 import time
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
@@ -40,6 +45,7 @@ from fsvid2vid_tpu_torch.training.state import (
 from fsvid2vid_tpu_torch.training.step import (
     StepFlags, init_prevs, train_step, train_step_faithful, with_vae_noise)
 from fsvid2vid_tpu_torch.utils.image_pool import ImagePool
+from fsvid2vid_tpu_torch.utils.profiling import span
 from fsvid2vid_tpu_torch.utils.visualizer import display_visuals
 
 SEQUENCE_KEYS = ("tgt_label", "tgt_image", "ref_labels", "ref_images")
@@ -99,10 +105,6 @@ class Trainer:
         self.start_epoch = 1
         self.epoch_iter = 0
         self.global_step = 0  # TensorBoard x-axis
-        # per sequence: epoch, iter, frames, the ms spent waiting for the data
-        # iterator, and the ms from its batch to its losses on the host
-        # (batch copy, teacher, steps)
-        self.timings: List[Dict] = []
         self.epoch_metrics: Dict[int, Dict[str, float]] = {}
         self._temporal_initialized = False
         self.pool = ImagePool(cfg.pool_size, seed=cfg.seed) if cfg.pool_size > 0 else None
@@ -163,86 +165,97 @@ class Trainer:
         count = 0
         t0 = time.time()
         bs = max(cfg.batch_size, 1)
-        t_asked = time.perf_counter()
-        for idx, seq in enumerate(data_iter):
-            t_got = time.perf_counter()
-            if idx < start_iter:
-                t_asked = time.perf_counter()
-                continue
-            seq = to_device(seq, self.device)
-            T = seq["tgt_label"].shape[1]
-            # teacher pseudo-GT flow for the whole sequence
-            flow_gt_seq, conf_gt_seq = [None, None], [None, None]
-            if flow_teacher is not None and not cfg.no_flow_gt:
-                flow_gt_seq, conf_gt_seq = flow_teacher(cfg, seq, epoch)
-            at = lambda xs, t: [None if x is None else x[:, t] for x in xs]
-
-            prevs = None
-            seq_losses: Dict[str, torch.Tensor] = {}
-            visuals = None
-            # the VAE's noise, seeded per sequence so that a resumed run draws
-            # what an uninterrupted one would
-            vae_gen = (torch.Generator().manual_seed(
-                (cfg.seed * 100003 + epoch) * 100003 + idx) if cfg.use_kld else None)
-            for t in range(T):
-                batch_t = {"tgt_label": seq["tgt_label"][:, t],
-                           "tgt_image": seq["tgt_image"][:, t],
-                           "ref_labels": seq["ref_labels"],
-                           "ref_images": seq["ref_images"],
-                           "flow_gt": at(flow_gt_seq, t), "conf_gt": at(conf_gt_seq, t)}
-                if self.pool is not None:
-                    b, h, w = batch_t["tgt_image"].shape[:3]
-                    pf, pm = self.pool.begin_step(b, (h, w, 3))
-                    batch_t["pool_fake"] = torch.from_numpy(pf).to(self.device)
-                    batch_t["pool_mask"] = torch.from_numpy(pm).to(self.device)
-                if prevs is None:
-                    prevs = init_prevs(cfg, batch_t)
-                flags = StepFlags(warp_prev=warp_prev, has_prev=warp_prev and t > 0,
-                                  use_pool=self.pool is not None)
-                prevs, losses, visuals = self.step_fn(
-                    cfg, self.state, with_vae_noise(cfg, batch_t, vae_gen), prevs, flags,
-                    compute_dtype=cfg.compute_dtype)
-                if self.pool is not None:
-                    self.pool.commit(visuals["fake_image"].float().cpu().numpy())
-                # summed on the device; averaged over ALL frames of the
-                # sequence (not just the last) below
-                for k, v in losses.items():
-                    seq_losses[k] = seq_losses[k] + v if k in seq_losses else v
-            keys = sorted(seq_losses)
-            values = (torch.stack([seq_losses[k] for k in keys]) / T).cpu().tolist()
-            self.timings.append(dict(epoch=epoch, iter=idx + 1, frames=T,
-                                     wait_ms=1e3 * (t_got - t_asked),
-                                     ms=1e3 * (time.perf_counter() - t_got)))
-            for k, v in zip(keys, values):
-                losses_accum[k] = losses_accum.get(k, 0.0) + v
-            count += 1
-            self.global_step += 1
-            iters_done = idx + 1
-            if cfg.print_freq and iters_done % max(1, cfg.print_freq // bs) == 0:
-                dt = (time.time() - t0) / max(count, 1)
-                avg = {k: v / count for k, v in losses_accum.items()}
-                if self.vis is not None:
-                    self.vis.print_current_errors(epoch, iters_done, avg, dt)
-                    self.vis.plot_current_errors(avg, self.global_step)
-                else:
-                    msg = " ".join(f"{k}:{v:.3f}" for k, v in sorted(avg.items()))
-                    self.log(f"epoch {epoch} iter {iters_done} ({dt:.2f}s/it) {msg}")
-            # display_freq image dumps (reference trainer.py:53-56 +
-            # save_all_tensors :96-111): the last frame of this sequence
-            if (self.vis is not None and cfg.display_freq
-                    and iters_done % max(1, cfg.display_freq // bs) == 0):
-                self.vis.save_images(display_visuals(cfg, visuals), epoch, iters_done)
-            # mid-epoch 'latest' checkpoint with the iter cursor (reference
-            # save_latest_freq, models/models.py:48-62)
-            if (cfg.save_latest_freq
-                    and iters_done % max(1, cfg.save_latest_freq // bs) == 0):
-                ckpt_lib.save(cfg, self.state, epoch, epoch_iter=iters_done,
-                              label="latest")
-                self.log(f"saved latest (epoch {epoch}, iter {iters_done})")
-            t_asked = time.perf_counter()
+        batches = iter(data_iter)
+        for idx in itertools.count():
+            with span("fsv.train.sequence"):
+                with span("fsv.train.wait"):
+                    seq = next(batches, None)
+                if seq is None:
+                    break
+                if idx < start_iter:
+                    continue
+                values, visuals = self._sequence(epoch, idx, seq, flow_teacher, warp_prev)
+                for k, v in values.items():
+                    losses_accum[k] = losses_accum.get(k, 0.0) + v
+                count += 1
+                self.global_step += 1
+                iters_done = idx + 1
+                if cfg.print_freq and iters_done % max(1, cfg.print_freq // bs) == 0:
+                    dt = (time.time() - t0) / max(count, 1)
+                    avg = {k: v / count for k, v in losses_accum.items()}
+                    if self.vis is not None:
+                        self.vis.print_current_errors(epoch, iters_done, avg, dt)
+                        self.vis.plot_current_errors(avg, self.global_step)
+                    else:
+                        msg = " ".join(f"{k}:{v:.3f}" for k, v in sorted(avg.items()))
+                        self.log(f"epoch {epoch} iter {iters_done} ({dt:.2f}s/it) {msg}")
+                # display_freq image dumps (reference trainer.py:53-56 +
+                # save_all_tensors :96-111): the last frame of this sequence
+                if (self.vis is not None and cfg.display_freq
+                        and iters_done % max(1, cfg.display_freq // bs) == 0):
+                    self.vis.save_images(display_visuals(cfg, visuals), epoch, iters_done)
+                # mid-epoch 'latest' checkpoint with the iter cursor (reference
+                # save_latest_freq, models/models.py:48-62)
+                if (cfg.save_latest_freq
+                        and iters_done % max(1, cfg.save_latest_freq // bs) == 0):
+                    with span("fsv.train.checkpoint"):
+                        ckpt_lib.save(cfg, self.state, epoch, epoch_iter=iters_done,
+                                      label="latest")
+                    self.log(f"saved latest (epoch {epoch}, iter {iters_done})")
         self.epoch_iter = 0  # epoch completed; next epoch starts clean
-        ckpt_lib.save_epoch(cfg, self.state, epoch)
+        with span("fsv.train.checkpoint"):
+            ckpt_lib.save_epoch(cfg, self.state, epoch)
         return {k: v / max(count, 1) for k, v in losses_accum.items()}
+
+    def _sequence(self, epoch: int, idx: int, seq: Dict, flow_teacher, warp_prev: bool):
+        """One sequence's frame steps: its losses averaged over its frames,
+        on the host, and the last frame's visuals."""
+        cfg = self.cfg
+        with span("fsv.train.to_device"):
+            seq = to_device(seq, self.device)
+        T = seq["tgt_label"].shape[1]
+        # teacher pseudo-GT flow for the whole sequence
+        flow_gt_seq, conf_gt_seq = [None, None], [None, None]
+        if flow_teacher is not None and not cfg.no_flow_gt:
+            with span("fsv.train.teacher"):
+                flow_gt_seq, conf_gt_seq = flow_teacher(cfg, seq, epoch)
+        at = lambda xs, t: [None if x is None else x[:, t] for x in xs]
+
+        prevs = None
+        seq_losses: Dict[str, torch.Tensor] = {}
+        visuals = None
+        # the VAE's noise, seeded per sequence so that a resumed run draws
+        # what an uninterrupted one would
+        vae_gen = (torch.Generator().manual_seed(
+            (cfg.seed * 100003 + epoch) * 100003 + idx) if cfg.use_kld else None)
+        for t in range(T):
+            batch_t = {"tgt_label": seq["tgt_label"][:, t],
+                       "tgt_image": seq["tgt_image"][:, t],
+                       "ref_labels": seq["ref_labels"],
+                       "ref_images": seq["ref_images"],
+                       "flow_gt": at(flow_gt_seq, t), "conf_gt": at(conf_gt_seq, t)}
+            if self.pool is not None:
+                b, h, w = batch_t["tgt_image"].shape[:3]
+                pf, pm = self.pool.begin_step(b, (h, w, 3))
+                batch_t["pool_fake"] = torch.from_numpy(pf).to(self.device)
+                batch_t["pool_mask"] = torch.from_numpy(pm).to(self.device)
+            if prevs is None:
+                prevs = init_prevs(cfg, batch_t)
+            flags = StepFlags(warp_prev=warp_prev, has_prev=warp_prev and t > 0,
+                              use_pool=self.pool is not None)
+            prevs, losses, visuals = self.step_fn(
+                cfg, self.state, with_vae_noise(cfg, batch_t, vae_gen), prevs, flags,
+                compute_dtype=cfg.compute_dtype)
+            if self.pool is not None:
+                self.pool.commit(visuals["fake_image"].float().cpu().numpy())
+            # summed on the device; averaged over ALL frames of the
+            # sequence (not just the last) below
+            for k, v in losses.items():
+                seq_losses[k] = seq_losses[k] + v if k in seq_losses else v
+        keys = sorted(seq_losses)
+        with span("fsv.train.losses_to_host"):
+            values = (torch.stack([seq_losses[k] for k in keys]) / T).cpu().tolist()
+        return dict(zip(keys, values)), visuals
 
     # ------------------------------------------------------------------
     def fit(self, make_data_iter: Callable[[int, int], Iterable],

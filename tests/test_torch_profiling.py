@@ -1,6 +1,6 @@
 """The port's profiling hooks (fsvid2vid_tpu_torch/utils/profiling.py) on the
-CPU: the trace file, the step timer, the operation count and the memory
-statistics (none without a CUDA device)."""
+CPU: the trace file, the operation count and the memory statistics (none
+without a CUDA device); the spans are in tests/test_torch_spans.py."""
 import glob
 import json
 import os
@@ -28,16 +28,6 @@ def test_trace_without_a_directory_does_nothing(tmp_path):
     with profiling.trace(None):
         torch.ones(2).sum()
     assert os.listdir(tmp_path) == []
-
-
-def test_step_timer_keeps_a_window(monkeypatch):
-    clock = iter([0.0, 1.0, 1.0, 4.0, 4.0, 9.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    timer = profiling.StepTimer(window=2)
-    for want in (1.0, 3.0, 5.0):
-        timer.start()
-        assert timer.stop() == want
-    assert timer.times == [3.0, 5.0] and timer.mean == 4.0
 
 
 def test_compiled_cost_counts_a_convolution():
