@@ -597,7 +597,7 @@ def run_frames(torch, pipe, labels, ref_labels, ref_images):
             frames.append(out["fake_image"])
             ref_idx.append(as_list(out["ref_idx"]))
             masses.append(as_list(out["atn"]))
-    frames = torch.stack(frames)
+    frames = torch.stack(frames).cuda()   # step hands its frames to the host
     if not torch.isfinite(frames).all():
         raise AssertionError("non-finite frames")
     return frames, ms, reset_ms, ref_idx, masses

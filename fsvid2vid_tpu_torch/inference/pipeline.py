@@ -20,6 +20,12 @@ refines each frame's face region from the first reference's face.  VAE
 configurations (use_kld) take z = mu, as at any eval.
 `compute_dtype="bfloat16"` runs the convolutions, matrix products and the
 attention kernel in bf16 under autocast; outputs are float32.
+
+`step` hands its frame to the host itself, as a server does (`hand_off`):
+on a CUDA device `fake_image` comes back in page-locked host memory, copied
+by one asynchronous DMA that the step waits for, with the strides `.cpu()`
+gives; on the CPU it is the frame itself.  The previous-frames ring and the
+other outputs stay on the device.
 """
 from __future__ import annotations
 
@@ -108,6 +114,26 @@ class _Runner:
         return dict(out, img_final=fake.float())
 
 
+def hand_off(frame: torch.Tensor) -> torch.Tensor:
+    """`frame` on the host, under span fsv.serve.handoff.  A CPU frame is
+    returned as it is ("in_place").  A device frame is copied into a fresh
+    page-locked block of PyTorch's caching host allocator, laid out as
+    `.cpu()` lays it out, by one DMA that is waited for ("pinned"): the
+    result is complete when this returns, and no later call writes to it."""
+    with span("fsv.serve.handoff"):
+        if frame.device.type == "cpu":
+            hand_off.calls_by_route["in_place"] += 1
+            return frame
+        host = torch.empty_like(frame, device="cpu", pin_memory=True)
+        host.copy_(frame, non_blocking=True)
+        torch.cuda.current_stream(frame.device).synchronize()
+        hand_off.calls_by_route["pinned"] += 1
+        return host
+
+
+hand_off.calls_by_route = {"pinned": 0, "in_place": 0}
+
+
 def _roll(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """Advance a channel-stacked ring buffer by one frame."""
     c = new.shape[-1]
@@ -152,9 +178,11 @@ class InferencePipeline:
             self.t = 0
 
     def step(self, label) -> Dict[str, torch.Tensor]:
-        """One frame.  Returns fake_image (B, H, W, 3) and the flows, masks,
-        raw image and warped images of the frame, channel-last; at K > 1
-        also ref_idx (B,) and atn (B, K), the references' attention masses."""
+        """One frame.  Returns fake_image (B, H, W, 3) on the host (`hand_off`:
+        page-locked and complete on a CUDA device), and on the device the
+        flows, masks, raw image and warped images of the frame,
+        channel-last; at K > 1 also ref_idx (B,) and atn (B, K), the
+        references' attention masses."""
         with span("fsv.serve.step"):
             if self._refs is None:
                 raise RuntimeError("call reset() first")
@@ -170,12 +198,12 @@ class InferencePipeline:
             self.prevs = {"label": _roll(self.prevs["label"], label[1]),
                           "fake": _roll(self.prevs["fake"], fake)}
             self.t += 1
-            return dict(fake_image=fake,
-                        flow=[_nhwc(f) for f in out["flow"]],
+            rest = dict(flow=[_nhwc(f) for f in out["flow"]],
                         flow_mask=[_nhwc(f) for f in out["flow_mask"]],
                         img_raw=_nhwc(out.get("img_raw")),
                         warped=[_nhwc(f) for f in out["img_warp"]],
                         ref_idx=out.get("ref_idx"), atn=out.get("atn"))
+            return dict(fake_image=hand_off(fake), **rest)
 
 
 def run_sequence(cfg: Config, netG: FewShotGenerator, labels, ref_labels,

@@ -17,7 +17,8 @@ floating-point operations, and `device_memory_stats` reads the allocator's
 live, peak and limit bytes.
 
 The spans, by layer:
-  inference  fsv.serve.reset, fsv.serve.step        (inference/pipeline.py)
+  inference  fsv.serve.reset; fsv.serve.step > fsv.serve.handoff, its last
+             child (the frame to the host)          (inference/pipeline.py)
   models     fsv.gen.weights, fsv.gen.flow, fsv.gen.main  (models/generator.py)
   training   fsv.train.sequence > fsv.train.wait, .to_device, .teacher,
              .step, .losses_to_host, .checkpoint    (training/trainer.py);

@@ -32,7 +32,8 @@ TINY = dict(ngf=4, nff=4, ndf=4, fine_size=SIZE, load_size=SIZE, n_blocks_F=2,
             n_downsample_G=3, n_adaptive_layers=2, compute_dtype="float32")
 STEP_PHASES = ["fsv.train.generate", "fsv.train.d_losses", "fsv.train.update_D",
                "fsv.train.g_losses", "fsv.train.update_G", "fsv.train.finish"]
-SERVE_READERS = ("gen_weights_ms.serve", "gen_flow_ms.serve", "gen_main_ms.serve")
+SERVE_READERS = ("gen_weights_ms.serve", "gen_flow_ms.serve", "gen_main_ms.serve",
+                 "handoff_ms.serve")
 TRAIN_READERS = ("step_host_ms.train", "update_host_ms.train", "forward_host_ms.train")
 
 
@@ -180,8 +181,8 @@ def test_pipeline_records_serving_and_generator_stages(k):
         "fsv.serve.reset", "fsv.serve.step", "fsv.serve.step"]
     assert children(records, 0) == ["fsv.gen.weights"]
     # K = 1 serves from the reset's cache; K > 1 attends to the references
-    # with each frame's label
-    stages = ["fsv.gen.main", "fsv.gen.flow", "fsv.gen.main"]
+    # with each frame's label; last, the frame goes to the host
+    stages = ["fsv.gen.main", "fsv.gen.flow", "fsv.gen.main", "fsv.serve.handoff"]
     want = stages if k == 1 else ["fsv.gen.weights"] + stages
     for n in (0, 1):
         assert children(records, index_of(records, "fsv.serve.step", n)) == want
@@ -251,14 +252,17 @@ def test_serve_readers_sum_device_time_inside_steps_per_step(registry):
             HostOp("fsv.gen.main", 12.0, 13.0, False, 300.0),
             HostOp("fsv.gen.flow", 13.0, 14.0, False, 2000.0),
             HostOp("fsv.gen.main", 14.0, 19.0, False, 2700.0),
+            HostOp("fsv.serve.handoff", 19.0, 20.0, False, 800.0),
             HostOp("fsv.serve.step", 20.0, 30.0, False, 5000.0),
             HostOp("fsv.gen.weights", 21.0, 22.0, False, 1000.0),
             HostOp("fsv.gen.flow", 23.0, 24.0, False, 1000.0),
-            HostOp("fsv.gen.main", 24.0, 29.0, False, 3000.0)]
+            HostOp("fsv.gen.main", 24.0, 29.0, False, 3000.0),
+            HostOp("fsv.serve.handoff", 29.0, 30.0, False, 400.0),
+            HostOp("fsv.serve.handoff", 30.0, 31.0, False, 700.0)]  # outside: not counted
     r = readings(TraceSummary(window_s=1.0, device=[], host=host))
     got = {name: registry.metric(name).read(r) for name in SERVE_READERS}
     assert got == pytest.approx({"gen_weights_ms.serve": 1.0, "gen_flow_ms.serve": 1.5,
-                                 "gen_main_ms.serve": 3.0})
+                                 "gen_main_ms.serve": 3.0, "handoff_ms.serve": 0.6})
 
 
 def test_train_readers_take_medians_over_the_steps(registry, monkeypatch):
