@@ -26,6 +26,7 @@ from fsvid2vid_tpu_torch.models.input_process import (
     get_fg_mask, get_part_mask, smoothed_face_mask)
 from fsvid2vid_tpu_torch.models.vgg import VGG_LOSS_WEIGHTS
 from fsvid2vid_tpu_torch.ops.warp import flow_warp
+from fsvid2vid_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -87,25 +88,27 @@ def discriminate_face(cfg: Config, apply_Df: Callable, vgg_apply, fake_image,
     boxes of the raw target and reference labels cropped from the images,
     D_f on [reference face, fake or real face], times lambda_face; for G
     also the L1 and, with the VGG loss on, the VGG loss of the face crops.
-    Returns [Df_real, Df_fake] or [Gf_GAN, Gf_GAN_Feat]."""
+    Returns [Df_real, Df_fake] or [Gf_GAN, Gf_GAN_Feat].  Span
+    fsv.train.face_d, in both the D and the G losses."""
     if not cfg.add_face_D:
         z = _zero(fake_image)
         return [z, z]
-    real_region, fake_region = (_nchw(r) for r in crop_face_region(
-        cfg, [_nhwc(tgt_image), _nhwc(fake_image)], _nhwc(tgt_label_raw)))
-    ref_region = _nchw(crop_face_region(cfg, _nhwc(ref_image), _nhwc(ref_label)))
-    losses = discriminate(cfg, apply_Df, ref_region, fake_region, real_region,
-                          None, for_discriminator)
-    losses = [l * cfg.lambda_face for l in losses]
-    if for_discriminator:
-        return losses
-    loss_Gf, loss_Gf_feat = losses
-    loss_Gf_feat = loss_Gf_feat + l1_loss(fake_region.float(),
-                                          real_region.float()) * cfg.lambda_feat
-    if not cfg.no_vgg_loss and vgg_apply is not None:
-        loss_Gf_feat = loss_Gf_feat + vgg_perceptual(
-            vgg_apply, fake_region, real_region) * cfg.lambda_vgg
-    return [loss_Gf, loss_Gf_feat]
+    with span("fsv.train.face_d"):
+        real_region, fake_region = (_nchw(r) for r in crop_face_region(
+            cfg, [_nhwc(tgt_image), _nhwc(fake_image)], _nhwc(tgt_label_raw)))
+        ref_region = _nchw(crop_face_region(cfg, _nhwc(ref_image), _nhwc(ref_label)))
+        losses = discriminate(cfg, apply_Df, ref_region, fake_region, real_region,
+                              None, for_discriminator)
+        losses = [l * cfg.lambda_face for l in losses]
+        if for_discriminator:
+            return losses
+        loss_Gf, loss_Gf_feat = losses
+        loss_Gf_feat = loss_Gf_feat + l1_loss(fake_region.float(),
+                                              real_region.float()) * cfg.lambda_feat
+        if not cfg.no_vgg_loss and vgg_apply is not None:
+            loss_Gf_feat = loss_Gf_feat + vgg_perceptual(
+                vgg_apply, fake_region, real_region) * cfg.lambda_vgg
+        return [loss_Gf, loss_Gf_feat]
 
 
 def compute_gan_losses(cfg: Config, applies: Dict[str, Callable], tgt_label,

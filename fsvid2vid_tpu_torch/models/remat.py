@@ -11,6 +11,10 @@ statistics), so the recomputation must neither see the advanced values nor
 advance them again: `modules`' buffers are copied before the forward, set
 back to the copy while the backward recomputes it, and restored afterwards.
 Under no_grad there is nothing to keep and `fn` runs as it is.
+
+Each re-run in the backward is one span fsv.train.recompute and one count
+in `remat.recomputes`.  On a CUDA device the backward, and so the span,
+runs on autograd's own thread: its record has no parent span.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ from typing import Callable, Iterable
 import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
+
+from fsvid2vid_tpu_torch.utils.profiling import span
 
 
 def remat(fn: Callable, *args, modules: Iterable[nn.Module] = ()):
@@ -35,12 +41,14 @@ def remat(fn: Callable, *args, modules: Iterable[nn.Module] = ()):
 
     @contextlib.contextmanager
     def recompute():
+        remat.recomputes += 1
         now = [b.detach().clone() for b in buffers]
         with torch.no_grad():
             for b, v in zip(buffers, before):
                 b.copy_(v)
         try:
-            yield
+            with span("fsv.train.recompute"):
+                yield
         finally:
             with torch.no_grad():
                 for b, v in zip(buffers, now):
@@ -48,3 +56,6 @@ def remat(fn: Callable, *args, modules: Iterable[nn.Module] = ()):
 
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (forward(), recompute()))
+
+
+remat.recomputes = 0

@@ -32,6 +32,8 @@ from typing import Iterable, Optional
 import torch
 import torch.distributed as dist
 
+from fsvid2vid_tpu_torch.utils.profiling import span
+
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
 
 
@@ -118,32 +120,40 @@ def all_reduce_grads(params: Iterable[torch.nn.Parameter]) -> None:
     """Replace each gradient by its mean over the ranks, in one all-reduce
     per dtype.  A parameter without a gradient on some rank takes zeros
     there if any other rank has one, so the optimizer sees the same set
-    everywhere (Adam skips a parameter whose gradient is None)."""
+    everywhere (Adam skips a parameter whose gradient is None).  In a
+    group: span fsv.train.all_reduce, and the gradients' bytes counted in
+    `all_reduce_grads.bytes`."""
     if not is_initialized():
         return
     params = [p for p in params if p.requires_grad]
     if not params:
         return
-    has = torch.tensor([p.grad is not None for p in params], dtype=torch.uint8)
-    if dist.get_backend() == "nccl":
-        has = has.to(params[0].device)
-    dist.all_reduce(has, op=dist.ReduceOp.MAX)
-    for p, h in zip(params, has.tolist()):
-        if h and p.grad is None:
-            p.grad = torch.zeros_like(p)
-    by_dtype = {}
-    for p in params:
-        if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    w = world()
-    for grads in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        flat /= w
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+    with span("fsv.train.all_reduce"):
+        has = torch.tensor([p.grad is not None for p in params], dtype=torch.uint8)
+        if dist.get_backend() == "nccl":
+            has = has.to(params[0].device)
+        dist.all_reduce(has, op=dist.ReduceOp.MAX)
+        for p, h in zip(params, has.tolist()):
+            if h and p.grad is None:
+                p.grad = torch.zeros_like(p)
+        by_dtype = {}
+        for p in params:
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        w = world()
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            _counted.bytes += flat.numel() * flat.element_size()
+            dist.all_reduce(flat)
+            flat /= w
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+
+all_reduce_grads.bytes = 0
+_counted = all_reduce_grads    # the counter's holder, should a caller rebind the name
 
 
 def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
@@ -162,4 +172,6 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     if world() == 1:
         return t
     from torch.distributed.nn.functional import all_reduce
-    return all_reduce(t)
+    # the group named at the call: all_reduce's default is the group of
+    # the time it was imported, gone once a process joins a second group
+    return all_reduce(t, group=dist.group.WORLD)

@@ -146,10 +146,11 @@ def generate_images(cfg: Config, models: ModelBundle, batch, prevs,
     ref_label = pick_ref(ref_labels, ref_idx)
     fake_image = out["img_final"]
     if cfg.refine_face:
-        fake_image = refine_face_region(
-            cfg, models.netGf, tgt_label_valid, fake_image.movedim(1, -1), tgt_label,
-            pick_ref(ref_labels_valid, ref_idx), pick_ref(ref_images, ref_idx),
-            ref_label).movedim(-1, 1)
+        with span("fsv.train.refine_face"):
+            fake_image = refine_face_region(
+                cfg, models.netGf, tgt_label_valid, fake_image.movedim(1, -1), tgt_label,
+                pick_ref(ref_labels_valid, ref_idx), pick_ref(ref_images, ref_idx),
+                ref_label).movedim(-1, 1)
 
     fg_mask = _nchw(get_fg_mask(cfg, tgt_label))
     ref_fg_mask = _nchw(get_fg_mask(cfg, ref_label))

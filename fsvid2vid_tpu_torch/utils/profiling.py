@@ -23,7 +23,13 @@ The spans, by layer:
   training   fsv.train.sequence > fsv.train.wait, .to_device, .teacher,
              .step, .losses_to_host, .checkpoint    (training/trainer.py);
              fsv.train.step > fsv.train.generate, .d_losses, .update_D,
-             .g_losses, .update_G, .finish          (training/step.py)
+             .g_losses, .update_G, .finish          (training/step.py);
+             below them fsv.train.refine_face (netGf, in generate),
+             fsv.train.face_d (netDf, in d_losses and g_losses;
+             losses/collector.py), fsv.train.recompute (each re-run of a
+             remat region in a backward; models/remat.py) and, in a
+             process group, fsv.train.all_reduce (in both updates;
+             parallel/mesh.py)
 """
 from __future__ import annotations
 
