@@ -3,7 +3,8 @@ fsvid2vid_tpu/inference/fold.py).
 
 At eval the power-iteration vectors are frozen, so sigma = u^T W v is a
 constant per weight: divide each spectrally normalised weight by it once
-instead of on every forward.
+instead of on every forward.  `serving_module` also lays the weights out
+channels-last, as the served forward runs.
 """
 from __future__ import annotations
 
@@ -25,3 +26,11 @@ def fold_spectral_norm(model: nn.Module) -> nn.Module:
             m.weight_orig.div_(s.to(m.weight_orig.dtype))
             m.folded = True
     return model
+
+
+def serving_module(model: nn.Module) -> nn.Module:
+    """`model` as it serves, in place: at eval, its spectral norms folded
+    and its 4-D weights channels-last, so that every convolution of a
+    channels-last input runs on NHWC operands with no transpose (and the
+    bf16 copies that autocast makes keep the layout).  Returns `model`."""
+    return fold_spectral_norm(model.eval()).to(memory_format=torch.channels_last)

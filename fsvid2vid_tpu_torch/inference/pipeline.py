@@ -21,6 +21,12 @@ configurations (use_kld) take z = mu, as at any eval.
 `compute_dtype="bfloat16"` runs the convolutions, matrix products and the
 attention kernel in bf16 under autocast; outputs are float32.
 
+The generator runs channels-last on every device: its weights are laid out
+so once (inference/fold.py `serving_module`, in place), each input enters
+as the (..., C, H, W) view of its channel-last memory with no copy, and the
+frame leaves as a dense (B, H, W, 3) block.  Every convolution of a step
+then runs on NHWC operands, with no layout transposes around it.
+
 `step` hands its frame to the host itself, as a server does (`hand_off`):
 on a CUDA device `fake_image` comes back in page-locked host memory, copied
 by one asynchronous DMA that the step waits for, with the strides `.cpu()`
@@ -35,7 +41,7 @@ from typing import Dict, Optional
 import torch
 
 from fsvid2vid_tpu_torch.config import Config
-from fsvid2vid_tpu_torch.inference.fold import fold_spectral_norm
+from fsvid2vid_tpu_torch.inference.fold import serving_module
 from fsvid2vid_tpu_torch.models.face_refiner import check_refine_face, refine_face_region
 from fsvid2vid_tpu_torch.models.generator import FewShotGenerator, pick_ref
 from fsvid2vid_tpu_torch.models.input_process import encode_label, use_valid_labels
@@ -43,7 +49,9 @@ from fsvid2vid_tpu_torch.utils.profiling import span
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.movedim(-1, -3).contiguous()
+    """A channel-last input as the generator takes it: the (..., C, H, W)
+    view of the same memory, channels-last, with no copy."""
+    return x.movedim(-1, -3)
 
 
 def _nhwc(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -62,8 +70,8 @@ class _Runner:
         if cfg.refine_face and netGf is None:
             raise ValueError("refine_face: pass the face generator netGf")
         self.cfg = cfg
-        self.netG = fold_spectral_norm(netG.eval())
-        self.netGf = fold_spectral_norm(netGf.eval()) if cfg.refine_face else None
+        self.netG = serving_module(netG)
+        self.netGf = serving_module(netGf) if cfg.refine_face else None
         self.device = next(netG.parameters()).device
         self.compute_dtype = compute_dtype
 
@@ -104,7 +112,7 @@ class _Runner:
             out = self.netG.synthesize(*args, cache, *prevs, warp_prev=warp_prev)
         else:
             out = self.netG(*args, *prevs, warp_prev=warp_prev, prefix=cache)
-        fake = out["img_final"].movedim(-3, -1)
+        fake = out["img_final"].movedim(-3, -1).contiguous()
         if self.netGf is not None:
             ref_idx = out.get("ref_idx")
             fake = refine_face_region(

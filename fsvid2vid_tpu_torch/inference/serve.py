@@ -29,7 +29,9 @@ f32, parallel/precision.py) and bf16 inputs, and frames come out in bf16.
 Inputs and outputs are channel-last, as the pipeline's: labels
 (B, H, W, Cl) (street: class indices, Cl = 1, one-hot encoded inside),
 references (B, K, H, W, *), frames (B, H, W, 3).  The per-frame semantics
-are those of InferencePipeline.step, held by tests/test_torch_serve.py.
+are those of InferencePipeline.step, held by tests/test_torch_serve.py, and
+so is the layout: the generator runs channels-last, its 4-D parameters
+saved channels-last and its inputs taken as channels-last views.
 """
 from __future__ import annotations
 
@@ -77,7 +79,7 @@ class _Methods(nn.Module):
 
 
 def _nchw(x):
-    return None if x is None else x.movedim(-1, -3).contiguous()
+    return None if x is None else x.movedim(-1, -3)
 
 
 def _nhwc(x):
@@ -154,8 +156,8 @@ def _example_inputs(cfg: Config, dtype: torch.dtype, device: torch.device):
 
 
 def _fold(netG) -> nn.Module:
-    from fsvid2vid_tpu_torch.inference.fold import fold_spectral_norm
-    return fold_spectral_norm(copy.deepcopy(netG).eval())
+    from fsvid2vid_tpu_torch.inference.fold import serving_module
+    return serving_module(copy.deepcopy(netG))
 
 
 def _params(folded: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:

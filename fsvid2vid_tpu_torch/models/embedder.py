@@ -1,5 +1,7 @@
 """Label / warped-image embedding pyramids (port of
-fsvid2vid_tpu/models/embedder.py, reference generator.py:506-572), NCHW.
+fsvid2vid_tpu/models/embedder.py, reference generator.py:506-572) on
+(B, C, H, W) maps in the layout they come in (channels-last in the served
+forward).
 
 Torch names follow the reference's Sequential wrappers: `conv_first.0`,
 `down_{i}.0` and `up_{i}.1` (behind an Upsample at index 0).  The first
@@ -14,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from fsvid2vid_tpu_torch.ops.batch_conv import batch_conv
-from fsvid2vid_tpu_torch.ops.image_ops import leaky_relu, upsample_nearest
+from fsvid2vid_tpu_torch.ops.image_ops import Upsample, leaky_relu, upsample_nearest
 
 
 def channel_schedule(nf: int, n: int, nf_max: int = 1024):
@@ -42,7 +44,7 @@ class LabelEmbedder(nn.Module):
                 if i >= params_free_layers:
                     cin = ch[i + 1] * (2 if self.unet and i != n_downsample - 1 else 1)
                     setattr(self, f"up_{i}", nn.Sequential(
-                        nn.Upsample(scale_factor=2),
+                        Upsample(2),
                         nn.Conv2d(cin, ch[i], 3, padding=1)))
 
     def forward(self, x: Optional[torch.Tensor],

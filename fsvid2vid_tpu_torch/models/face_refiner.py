@@ -6,8 +6,8 @@ ints (face_refiner.py:54-86); here, as in the JAX package, the box comes
 from masked min / max reductions and the crop and the paste are fixed-shape
 bilinear samples (ops/crop.py), so boxes, crops and pastes stay on the
 device.  Channel-last, as the JAX functions; the face generator netGf
-(`FewShotGenerator(..., for_face=True)`) runs NCHW inside
-`refine_face_region`.
+(`FewShotGenerator(..., for_face=True)`) takes the crops as channels-last
+views of (B, C, h, w) in `refine_face_region`.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """Flow estimation network (port of fsvid2vid_tpu/models/flow_generator.py,
-reference generator.py:456-504), NCHW, plain layout.
+reference generator.py:456-504), plain layout (no space-to-depth), on
+(B, C, H, W) maps in the memory layout they come in; `cat_channels` joins
+the inputs so that a channels-last one stays channels-last.
 
 Input: the current label concatenated with n_frames_G - 1 previous labels
 and images (for the reference branch: the reference label and image).
@@ -17,6 +19,7 @@ from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.models.embedder import channel_schedule
 from fsvid2vid_tpu_torch.models.layers import (
     SNConv, SpadeResnetBlock, make_plain_norm)
+from fsvid2vid_tpu_torch.ops.image_ops import Upsample, cat_channels
 
 
 class FlowGenerator(nn.Module):
@@ -47,7 +50,7 @@ class FlowGenerator(nn.Module):
             for _ in range(cfg.n_blocks_F)])
         up = []
         for i in reversed(range(nd)):
-            up += [nn.Upsample(scale_factor=2), conv_norm(ch[i + 1], ch[i]), act()]
+            up += [Upsample(2), conv_norm(ch[i + 1], ch[i]), act()]
         self.up_flow = nn.Sequential(*up)
         self.conv_flow = nn.Sequential(nn.Conv2d(nf, 2, 3, padding=1))
         self.conv_mask = nn.Sequential(nn.Conv2d(nf, 1, 3, padding=1))
@@ -55,7 +58,7 @@ class FlowGenerator(nn.Module):
     def forward(self, label, label_prev, img_prev):
         """label: (B, Cl, H, W); label_prev / img_prev: the previous frames
         stacked on channels.  Returns (flow (B, 2, H, W), mask (B, 1, H, W))."""
-        h = self.down_flow(torch.cat([label, label_prev, img_prev], 1))
+        h = self.down_flow(cat_channels([label, label_prev, img_prev]))
         h = self.up_flow(self.res_flow(h))
         flow = self.conv_flow(h) * self.flow_multiplier
         mask = torch.sigmoid(self.conv_mask(h))

@@ -1,6 +1,10 @@
 """Few-shot adaptive-SPADE generator (port of
-fsvid2vid_tpu/models/generator.py, reference models/networks/generator.py),
-NCHW inside.
+fsvid2vid_tpu/models/generator.py, reference models/networks/generator.py)
+on (B, C, H, W) maps.  The layout follows the inputs: the serving pipeline
+hands channels-last views to a module whose weights are channels-last, and
+every stage keeps that layout (the warps, `cat_channels`, B1's tokens,
+which are then a view, and its output, channels-last as it comes), so that
+no convolution of a served step is wrapped in layout transposes.
 
 Ported: the reference encoder with its K-reference attention, the weight
 generation (fc stacks with the reference's flat-split order), the flow
@@ -60,7 +64,8 @@ from fsvid2vid_tpu_torch.models.layers import (
 from fsvid2vid_tpu_torch.models.remat import remat
 from fsvid2vid_tpu_torch.ops.attention_kernel import (MAX_C, chunked_ref_attention,
                                                        flash_ref_attention)
-from fsvid2vid_tpu_torch.ops.image_ops import adaptive_avg_pool, leaky_relu, upsample_nearest
+from fsvid2vid_tpu_torch.ops.image_ops import (adaptive_avg_pool, cat_channels, leaky_relu,
+                                               upsample_nearest)
 from fsvid2vid_tpu_torch.ops.warp import flow_warp
 from fsvid2vid_tpu_torch.utils.profiling import span
 
@@ -489,9 +494,9 @@ class FewShotGenerator(nn.Module):
                 img_warp[1] = flow_warp(prev_img[:, -3:], flow[1])
         if cfg.spade_combine:
             if self.warp_ref:
-                ds_ref[0] = torch.cat([img_warp[0], flow_mask[0]], 1)
+                ds_ref[0] = cat_channels([img_warp[0], flow_mask[0]])
             if do_prev:
-                ds_ref[1] = torch.cat([img_warp[1], flow_mask[1]], 1)
+                ds_ref[1] = cat_channels([img_warp[1], flow_mask[1]])
         return flow, flow_mask, img_warp, ds_ref
 
     def _spade_combine(self, encoded_label, ds_ref):

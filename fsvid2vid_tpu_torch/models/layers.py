@@ -1,4 +1,10 @@
-"""Core layers (port of fsvid2vid_tpu/models/layers.py), NCHW.
+"""Core layers (port of fsvid2vid_tpu/models/layers.py) on (B, C, H, W)
+maps, in whichever memory layout they come: NCHW, or channels-last in the
+served forward (inference/fold.py `serving_module` lays the weights out
+channels-last, inference/pipeline.py hands the inputs as channels-last
+views), where every convolution then runs on NHWC operands and the norms'
+elementwise work keeps the layout.  SPADE's per-sample 1 x 1 convolutions
+take batch_conv's batched-product route there (ops/batch_conv.py).
 
 Parameter and buffer names are the reference's torch names, so the modules
 load the reference's state dicts directly:
