@@ -3,19 +3,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, all at
+Builds the port's CUDA kernels from the sources in this checkout, both at
 once (one nvcc per source): multi-reference flash attention on six
 tensor-core routes (bf16, and f32 on split-bf16 products, each for
 c % 8 == 0 up to 128 channels, for c % 8 != 0 on inputs zero-padded by a
-pre-pass, and for 128 < c <= 512 on the wide walk) beside the CUDA-core
-kernel they replaced, and the FlowNetC cost volume on the tensor cores for
-every displacement grid (a banded product over classes of pixels mod the
-stride and windows of shifts) beside the CUDA-core kernel it replaced.  It
-holds each against its plain PyTorch version on the card, times each
-attention route at the shape of the path it serves in turns against the
-CUDA-core design (where that takes c) and the cost volume likewise, and
-then drives the port's two main paths end to end at the full width of
-face_config:
+pre-pass, and for 128 < c <= 512 on the wide walk), and the FlowNetC cost
+volume on the tensor cores for every displacement grid (a banded product
+over classes of pixels mod the stride and windows of shifts).  It holds
+each against its plain PyTorch version on the card, times each attention
+route at the shape of the path it serves and the cost volume at each grid,
+twice each, and then drives the port's two main paths end to end at the
+full width of face_config:
 
   * serving: K-shot face synthesis at 512 px with K = 8 references (the
     attention kernel once per frame: bf16 frames on the bf16 tensor-core
@@ -120,8 +118,8 @@ SLICE = dict(b=1, hw=128 * 128, n_refs=8, c=128, has_lf=True)
 RAGGED = dict(b=2, hw=13 * 11, n_refs=3, c=40, has_lf=False)
 # c % 8 != 0: the ragged routes (inputs zero-padded to a multiple of 8)
 RAGGED_C36 = dict(b=1, hw=150, n_refs=3, c=36, has_lf=True)
-# the slice's hw and K at c = 124 (ragged; comparable with the CUDA-core
-# kernel's time at the slice) and at c = 256 (the wide routes: the K = 8 /
+# the slice's hw and K at c = 124 (ragged; comparable with the narrow
+# route's time at the slice) and at c = 256 (the wide routes: the K = 8 /
 # 512 px model at --ngf 64), and c = 512, the widest the JAX generator sends
 # to its kernel, at a small hw
 SLICE_C124 = dict(SLICE, c=124)
@@ -210,7 +208,7 @@ def phase_build():
     from fsvid2vid_tpu_torch.ops import cost_volume as cv
     t0 = time.perf_counter()
     pending = [(lib, lib.start_build(verbose=True))
-               for lib in (ak.KERNEL_SM90, ak.KERNEL, cv.KERNEL_TC, cv.KERNEL)]
+               for lib in (ak.KERNEL_SM90, cv.KERNEL_TC)]
     for lib, finish in pending:
         seconds, log = finish()
         ptxas = [ln.strip() for ln in log.splitlines()
@@ -327,21 +325,14 @@ def check_kernel(torch, dtype_name, case, timed):
            "max_abs_err_out": err_out, "tol_out": tol_out,
            "max_abs_err_vis": err_vis, "tol_vis": tol_vis, "ok": ok}
     if timed and ok:
-        # in turns against the CUDA-core design the tensor-core routes
-        # replaced, where it takes c (<= 128); else the route alone, twice
         c = shape["c"]
-        previous = "cuda_core" if c <= ak.NARROW_MAX_C else route
-        turns = [(r, cuda_ms(torch, lambda r=r: ak._LAUNCH[r](q, k, xf, lf, n_refs), 5))
-                 for r in (route, previous, previous, route)]
-        mean = lambda name: sum(ms for r, ms in turns if r == name) / sum(
-            1 for r, _ in turns if r == name)
+        turns = [(route, cuda_ms(torch, lambda: ak._LAUNCH[route](q, k, xf, lf, n_refs), 5))
+                 for _ in range(2)]
         res["turns_ms"] = turns
         res["sm_clock_power_temperature"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
              "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-        res["ms"] = mean(route)
-        if previous == "cuda_core":
-            res["previous_design_ms"] = mean("cuda_core")
+        res["ms"] = sum(ms for _, ms in turns) / 2
         res["plain_ms"] = cuda_ms(
             torch, lambda: ak.flash_ref_attention_plain(q, k, xf, lf, n_refs), 2)
         lib = library_attention(torch, q, k, xf, lf, n_refs)
@@ -362,7 +353,7 @@ def check_kernel(torch, dtype_name, case, timed):
                    bound_by="operations" if ops_ms >= bytes_ms else "bytes")
         if f32:
             res.update(split_flop=split_flops,
-                       f32_cuda_core_bound_ms=1e3 * flops / H100_F32_FLOPS)
+                       f32_fma_bound_ms=1e3 * flops / H100_F32_FLOPS)
         # the products the design does: padded channels, whole boxes, and
         # QK^T once per value slice on the wide routes
         design = design_flops(route, shape["b"], shape["hw"], n_refs, c, shape["has_lf"])
@@ -406,8 +397,7 @@ def phase_kernels(torch):
 # shape, PWC-Net's search range (md 4, s 1, D = 9), the reference
 # correlation layer's window at stride2 = 1 (md 20, D = 41, two windows of
 # shifts), stride 3 (D = 15), D = 65 (three windows; the f32 output is 208
-# MB) and D = 81 on a ragged map smaller than the window, the last two
-# above the CUDA-core kernel's 64
+# MB) and D = 81 on a ragged map smaller than the window
 STREET_BATCH = 6   # the reference's 46 over 8 GPUs, rounded up
 CV_SHAPES = {"slice": (12, 256, 32, 32, 20, 2), "px512": (4, 256, 64, 64, 20, 2),
              "pose": (12, 256, 64, 32, 20, 2),
@@ -422,10 +412,6 @@ CV_SHAPES = {"slice": (12, 256, 32, 32, 20, 2), "px512": (4, 256, 64, 64, 20, 2)
 #  bf16: both round an f32 result below 1 to bf16 (ulp 2^-8 below 1, and the
 #    two f32 sums may fall on either side of a rounding boundary): 4e-3.
 CV_TOL = {"float32": 2e-6, "bfloat16": 4e-3}
-# the tensor-core kernel timed in turns against the CUDA-core design, where
-# that takes the grid (D <= 64)
-CV_TIMING_TURNS = ("tc", "cuda_core", "cuda_core", "tc")
-CV_CUDA_CORE_MAX_D = 64
 
 
 def cv_tc_flops(b, c, h, w, md, stride, split):
@@ -446,8 +432,7 @@ def cv_tc_flops(b, c, h, w, md, stride, split):
 
 def check_cost_volume(torch, dtype_name, case):
     """The routed kernel (tc for every grid) against the plain version, and
-    the kernel's tiling against its Python mirror; where the CUDA-core kernel
-    takes the grid, it too, both timed in turns."""
+    the kernel's tiling against its Python mirror; the kernel timed twice."""
     from fsvid2vid_tpu_torch.ops import cost_volume as cv
     b, c, h, w, md, stride = CV_SHAPES[case]
     dtype = getattr(torch, dtype_name)
@@ -502,30 +487,20 @@ def check_cost_volume(torch, dtype_name, case):
            "bound_by": "operations" if ops_s >= nbytes / H100_BYTES_PER_S else "bytes",
            "library_ms": None}   # no single PyTorch call computes this function
     if dtype == torch.float32:
-        res["f32_cuda_core_bound_ms"] = 1e3 * max(flops / H100_F32_FLOPS,
-                                                  nbytes / H100_BYTES_PER_S)
-    launch = {"tc": cv._launch_tc, "cuda_core": cv._launch_cuda_core}
-    previous = d <= CV_CUDA_CORE_MAX_D   # the CUDA-core kernel takes the grid
-    if previous:
-        old = cv._launch_cuda_core(f1, f2, md, stride)
-        res["cuda_core_max_abs_err"] = (old.float() - ref.float()).abs().max().item()
-        res["ok"] = res["ok"] and res["cuda_core_max_abs_err"] <= tol
-        del old
+        res["f32_fma_bound_ms"] = 1e3 * max(flops / H100_F32_FLOPS,
+                                            nbytes / H100_BYTES_PER_S)
     del ref
-    turns = [(r, cuda_ms(torch, lambda r=r: launch[r](f1, f2, md, stride), 20))
-             for r in (CV_TIMING_TURNS if previous else ("tc", "tc"))]
+    turns = [(route, cuda_ms(torch, lambda: cv._launch_tc(f1, f2, md, stride), 20))
+             for _ in range(2)]
     res["turns_ms"] = turns
-    res["ms"] = sum(ms for r, ms in turns if r == "tc") / 2
-    if previous:
-        res["previous_design_ms"] = sum(ms for r, ms in turns if r == "cuda_core") / 2
+    res["ms"] = sum(ms for _, ms in turns) / 2
     tc_flops = cv_tc_flops(b, c, h, w, md, stride, dtype == torch.float32)
     res.update(tc_flop=tc_flops, design_bound_ms=1e3 * tc_flops / H100_TF32_FLOPS)
     res["design_bound_share"] = res["design_bound_ms"] / res["ms"]
     res["bound_share"] = res["bound_ms"] / res["ms"]
     emit(res)
     if not res["ok"]:
-        raise AssertionError(f"cost_volume {case} {dtype_name}: error {err} "
-                             f"(CUDA-core {res.get('cuda_core_max_abs_err')}) above {tol}")
+        raise AssertionError(f"cost_volume {case} {dtype_name}: error {err} above {tol}")
     return res
 
 
@@ -931,7 +906,7 @@ def phase_train(torch):
     emit(res)
     if launches != flow_calls or launches == 0:
         raise AssertionError(f"cost volume launches {launches} != flow calls {flow_calls}")
-    if by_route != {"tc": flow_calls, "cuda_core": 0}:
+    if by_route != {"tc": flow_calls}:
         raise AssertionError(f"cost volume launches by route {by_route}: expected every "
                              "teacher call on the tensor-core route")
     if moved["G"] < 0.9 * moved["G_of"] or moved["D"] < 0.9 * moved["D_of"]:
@@ -1099,7 +1074,7 @@ def check_counts(cv, what, expected):
     """Every cost-volume launch since zero_counts on the tensor-core route,
     as many as the run's flow computations."""
     by_route = dict(cv.cost_volume_cuda.launches_by_route)
-    if by_route != {"tc": expected, "cuda_core": 0}:
+    if by_route != {"tc": expected}:
         raise AssertionError(f"{what}: cost volume launches by route {by_route}, "
                              f"expected {expected} on the tensor-core route")
     return by_route
@@ -3514,7 +3489,7 @@ def phase_data_parallel(torch, tmp):
            "b2_launches_by_rank": [r["b2_launches_by_route"] for r in report["ranks"]],
            "b2_launches_one_process": report["single"]["b2_launches_by_route"]}
     for r in report["ranks"]:   # one teacher call: the reference and previous flows
-        if r["b2_launches_by_route"] != {"tc": 2, "cuda_core": 0}:
+        if r["b2_launches_by_route"] != {"tc": 2}:
             raise AssertionError(f"rank {r['rank']}: B2 launches {r['b2_launches_by_route']}")
 
     # one step of the CLI in a one-rank NCCL group (torchrun's environment)
@@ -3619,38 +3594,14 @@ def main() -> int:
         dp_res = timed("data_parallel_face_256", phase_data_parallel, torch, dp_tmp)
     emit({"phase_seconds_all": seconds, "total_seconds": time.perf_counter() - t_start})
     bf, f32 = kern["slice", "bfloat16"], kern["slice", "float32"]
-    c36 = kern["ragged_c36", "float32"]
     routes = slice_res["launches_by_route"]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "previous_design_ms",
-            "bound_share")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share")
     b1 = {"route": "cuda", "replaces": "fsvid2vid_tpu/ops/pallas/attention_kernel.py:158",
           "shape": SLICE, "card": smi}
-    # the CUDA-core design both tensor-core routes replaced at the slice: its
-    # f32 FMAs bound at the f32 peak; on the main path no more, checked at c = 36
-    b1_cuda_core = {
-        "name": "flash_ref_attention_cuda_core", **b1,
-        "source": "fsvid2vid_tpu_torch/csrc/flash_ref_attention.cu",
-        "launches": routes["cuda_core"], "checked_on": "ragged_c36",
-        "max_abs_err": c36["max_abs_err_out"], "ms": f32["previous_design_ms"],
-        "plain_ms": f32["plain_ms"], "bound_ms": f32["f32_cuda_core_bound_ms"],
-        "bound_by": "operations", "library_ms": f32["library_ms"], "dtype": "float32"}
     cv_main = cv_res["slice", "float32"]   # the teacher runs in f32
     cv_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     b2 = {"route": "cuda", "replaces": "fsvid2vid_tpu/ops/pallas/cost_volume_kernel.py:71",
           "dtype": "float32", "shape": CV_SHAPES["slice"], "card": smi}
-    # the CUDA-core design, no route's kernel since the tc kernel took every
-    # grid: checked and timed in turns at every case with D <= 64
-    b2_cuda_core = {
-        "name": "cost_volume_cuda_core", **b2, "source": "fsvid2vid_tpu_torch/csrc/cost_volume.cu",
-        "launches": train_res["cost_volume_launches_by_route"]["cuda_core"],
-        **{key: max(r["cuda_core_max_abs_err"] for (_, d), r in cv_res.items()
-                    if d == dtype and "cuda_core_max_abs_err" in r)
-           for key, dtype in (("max_abs_err", "float32"), ("max_abs_err_bf16", "bfloat16"))},
-        "ms": cv_main["previous_design_ms"], "plain_ms": cv_main["plain_ms"],
-        "bound_ms": cv_main["f32_cuda_core_bound_ms"], "bound_by": "operations",
-        "library_ms": None,
-        "ms_by_case": {f"{case}_{d}": r["previous_design_ms"] for (case, d), r in cv_res.items()
-                       if "previous_design_ms" in r}}
     b1_paths = {"slice_k8_512": routes["sm90"],
                 "slice_k8_512_kld_concat": kld_res["launches_by_dtype"]["bfloat16"]["sm90"],
                 "slice_k8_512_matched": slice_res["matched_launches_by_route"]["sm90"],
@@ -3692,7 +3643,7 @@ def main() -> int:
             "max_abs_err": r["max_abs_err_out"],
             f"max_abs_err_{other}": kern[other, dtype]["max_abs_err_out"],
             **{k: r.get(k) for k in keys + ("design_bound_ms", "design_bound_share")},
-            "dtype": dtype, **({"f32_cuda_core_bound_ms": r["f32_cuda_core_bound_ms"]}
+            "dtype": dtype, **({"f32_fma_bound_ms": r["f32_fma_bound_ms"]}
                                if dtype == "float32" else {}),
             **({f"at_{other}": {k: kern[other, dtype].get(k) for k in keys + (
                 "design_bound_ms", "design_bound_share")}} if "wide" in route else {})})
@@ -3709,8 +3660,7 @@ def main() -> int:
         "max_abs_err": f32["max_abs_err_out"],
         "max_abs_err_without_lf": kern["slice_nolf", "float32"]["max_abs_err_out"],
         **{k: f32[k] for k in keys}, "dtype": "float32",
-        "f32_cuda_core_bound_ms": f32["f32_cuda_core_bound_ms"],
-        "previous_design": b1_cuda_core},
+        "f32_fma_bound_ms": f32["f32_fma_bound_ms"]},
         *new_routes, {
         "name": "cost_volume_tc", **b2, "source": "fsvid2vid_tpu_torch/csrc/cost_volume_tc.cu",
         "launches": train_res["cost_volume_launches_by_route"]["tc"],
@@ -3739,13 +3689,12 @@ def main() -> int:
                              "data_parallel_face_256": sum(
                                  r["tc"] for r in dp_res["b2_launches_by_rank"])},
         **{f"{case}_shape": {k: cv_res[case, "float32"][k] for k in cv_keys + (
-            "shape", "bound_share", "previous_design_ms")} for case in ("pose", "street")},
+            "shape", "bound_share")} for case in ("pose", "street")},
         **{k: cv_main[k] for k in cv_keys},
-        **{k: cv_main[k] for k in ("previous_design_ms", "bound_share", "design_bound_ms",
-                                   "design_bound_share", "f32_cuda_core_bound_ms")},
-        "previous_design": b2_cuda_core,
+        **{k: cv_main[k] for k in ("bound_share", "design_bound_ms", "design_bound_share",
+                                   "f32_fma_bound_ms")},
         "other": {f"{case}_{d}": {k: r.get(k) for k in cv_keys + (
-                      "route", "d", "previous_design_ms", "design_bound_ms", "bound_share",
+                      "route", "d", "design_bound_ms", "bound_share",
                       "design_bound_share")}
                   for (case, d), r in cv_res.items() if (case, d) != ("slice", "float32")}}]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -65,7 +65,7 @@
 //    s = 2 the rows are the 32 pixels and the 16 NT columns in order, as in
 //    the parity design this generalises.  (Copying single floats straight
 //    from (B, C, H, W) into that layout left the kernel no faster than the
-//    CUDA-core one.)
+//    CUDA-core design this kernel replaced.)
 //  - Staging is double-buffered: the copies of the next step are issued
 //    before this step's products, so a step waits only on copies issued a
 //    step earlier.  Two blocks share an SM.

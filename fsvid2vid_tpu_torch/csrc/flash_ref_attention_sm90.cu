@@ -3,9 +3,8 @@
 // count 1 <= c <= 512 that the JAX generator sends to its Pallas kernel.
 //
 // Replaces the Pallas TPU kernel fsvid2vid_tpu/ops/pallas/attention_kernel.py
-// (flash_ref_attention, body _kernel).  csrc/flash_ref_attention.cu, the
-// CUDA-core design these routes replaced, stays as the previous design.  For
-// each batch element b and query q, with N = K * hw_key keys:
+// (flash_ref_attention, body _kernel).  For each batch element b and query
+// q, with N = K * hw_key keys:
 //
 //   s[n]         = query[b,q,:] . key[b,n,:]
 //   out_x[b,q,:] = sum_n softmax_n(s)[n] * xf[b,n,:]

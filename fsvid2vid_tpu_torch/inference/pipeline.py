@@ -43,7 +43,7 @@ import torch
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.inference.fold import serving_module
 from fsvid2vid_tpu_torch.models.face_refiner import check_refine_face, refine_face_region
-from fsvid2vid_tpu_torch.models.generator import FewShotGenerator, pick_ref
+from fsvid2vid_tpu_torch.models.generator import FewShotGenerator, pick_ref, roll_prevs
 from fsvid2vid_tpu_torch.models.input_process import encode_label, use_valid_labels
 from fsvid2vid_tpu_torch.utils.profiling import span
 
@@ -56,6 +56,38 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 def _nhwc(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if x is None else x.movedim(-3, -1).float()
+
+
+def encode_references(cfg: Config, call, ref_valid, ref_images, first_label):
+    """The references' cache, made once a clip: `encode_reference` at K = 1
+    (it reads the first frame's label), else the label-independent prefix
+    of `encode_reference_multi`.  `call(name, *args, **kw)` runs the
+    generator's method `name`; the inputs are channel-last, the labels valid
+    (`use_valid_labels`)."""
+    args = (_nchw(ref_valid), _nchw(ref_images))
+    if cfg.n_shot == 1:
+        return call("encode_reference", *args, _nchw(first_label))
+    return call("encode_reference_multi", *args)
+
+
+def frame_step(cfg: Config, call, cache, label_valid, ref_valid, ref_images, prevs):
+    """One frame's generator outputs from the references' cache (the JAX
+    package's `frame_step_jit`): `synthesize` at K = 1, else the forward
+    from the prefix, as at K > 1 the attention reads the current label.
+    `prevs` is the ring of previous frames ({"label", "fake"}, channel-last,
+    advanced by `roll_prevs`), None on a clip's first frame, which then
+    blends only with the warped reference.  `call` and the inputs as in
+    `encode_references`.  img_final comes back channel-last, a view of the
+    generator's output."""
+    args = (_nchw(label_valid), _nchw(ref_valid), _nchw(ref_images))
+    prev_l, prev_i = (None, None) if prevs is None else (
+        _nchw(prevs["label"]), _nchw(prevs["fake"]))
+    warp_prev = prevs is not None and cfg.n_frames_G > 1
+    if cfg.n_shot == 1:
+        out = call("synthesize", *args, cache, prev_l, prev_i, warp_prev=warp_prev)
+    else:
+        out = call("forward", *args, prev_l, prev_i, warp_prev=warp_prev, prefix=cache)
+    return dict(out, img_final=out["img_final"].movedim(-3, -1))
 
 
 class _Runner:
@@ -91,28 +123,19 @@ class _Runner:
             stack.enter_context(torch.autocast(self.device.type, torch.bfloat16))
         return stack
 
-    def encode(self, ref_labels, ref_images, first_label):
-        """ref_labels / ref_images: valid, channel-last; first_label: valid."""
-        g = self.netG
-        if self.cfg.n_shot == 1:
-            return g.encode_reference(_nchw(ref_labels), _nchw(ref_images),
-                                      _nchw(first_label))
-        return g.encode_reference_multi(_nchw(ref_labels), _nchw(ref_images))
+    def call(self, name, *args, **kw):
+        """The generator's method `name` on `args`."""
+        return getattr(self.netG, name)(*args, **kw)
 
-    def synth(self, cache, label, refs, prev_l, prev_i, warp_prev):
-        """One frame from (encoded, valid) `label` and `refs` = (encoded,
-        valid) reference labels and the reference images; the face refined
-        with refine_face.  Returns the generator's outputs, img_final
-        channel-last."""
+    def synth(self, cache, label, refs, prevs):
+        """One frame (`frame_step`) from (encoded, valid) `label`, `refs` =
+        (encoded, valid) reference labels and the reference images, and the
+        ring `prevs`, None on a clip's first frame; the face refined with
+        refine_face.  Returns the generator's outputs, img_final a dense
+        channel-last float32 frame."""
         (label_raw, label_valid), (ref_raw, ref_valid, ref_images) = label, refs
-        args = (_nchw(label_valid), _nchw(ref_valid), _nchw(ref_images))
-        prevs = (None if prev_l is None else _nchw(prev_l),
-                 None if prev_i is None else _nchw(prev_i))
-        if self.cfg.n_shot == 1:
-            out = self.netG.synthesize(*args, cache, *prevs, warp_prev=warp_prev)
-        else:
-            out = self.netG(*args, *prevs, warp_prev=warp_prev, prefix=cache)
-        fake = out["img_final"].movedim(-3, -1).contiguous()
+        out = frame_step(self.cfg, self.call, cache, label_valid, ref_valid, ref_images, prevs)
+        fake = out["img_final"].contiguous()
         if self.netGf is not None:
             ref_idx = out.get("ref_idx")
             fake = refine_face_region(
@@ -142,14 +165,6 @@ def hand_off(frame: torch.Tensor) -> torch.Tensor:
 hand_off.calls_by_route = {"pinned": 0, "in_place": 0}
 
 
-def _roll(buf: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-    """Advance a channel-stacked ring buffer by one frame."""
-    c = new.shape[-1]
-    if buf.shape[-1] == c:
-        return new
-    return torch.cat([buf[..., c:], new], -1)
-
-
 class InferencePipeline:
     """Stateful frame-by-frame inference with the prevs ring buffer; with
     refine_face, `netGf` is the face generator."""
@@ -176,7 +191,8 @@ class InferencePipeline:
             else:
                 first_label = run.labels(first_label)[1]
             with run.context():
-                self.cache = run.encode(ref_valid, ref_images, first_label)
+                self.cache = encode_references(cfg, run.call, ref_valid, ref_images,
+                                               first_label)
             b, _, h, w, cl = ref_valid.shape
             n = max(1, cfg.n_frames_G - 1)
             self.prevs = {
@@ -194,17 +210,13 @@ class InferencePipeline:
         with span("fsv.serve.step"):
             if self._refs is None:
                 raise RuntimeError("call reset() first")
-            cfg, run = self.cfg, self._run
+            run = self._run
             label = run.labels(label)
-            has_prev = self.t > 0
             with run.context():
                 out = run.synth(self.cache, label, self._refs,
-                                self.prevs["label"] if has_prev else None,
-                                self.prevs["fake"] if has_prev else None,
-                                has_prev and cfg.n_frames_G > 1)
+                                self.prevs if self.t > 0 else None)
             fake = out["img_final"]
-            self.prevs = {"label": _roll(self.prevs["label"], label[1]),
-                          "fake": _roll(self.prevs["fake"], fake)}
+            self.prevs = roll_prevs(self.prevs, label=label[1], fake=fake)
             self.t += 1
             rest = dict(flow=[_nhwc(f) for f in out["flow"]],
                         flow_mask=[_nhwc(f) for f in out["flow_mask"]],
@@ -226,16 +238,14 @@ def run_sequence(cfg: Config, netG: FewShotGenerator, labels, ref_labels,
     ref_raw, ref_valid = run.labels(ref_labels)
     refs = (ref_raw, ref_valid, run.tensor(ref_images))
     n = max(1, cfg.n_frames_G - 1)
-    frames = []
+    frames, prevs = [], None
     with run.context():
-        cache = run.encode(ref_valid, refs[2], labels_valid[0])
-        fake = run.synth(cache, (labels_raw[0], labels_valid[0]), refs,
-                         None, None, False)["img_final"]
-        frames.append(fake)
-        prev_l, prev_i = labels_valid[0].repeat(1, 1, 1, n), fake.repeat(1, 1, 1, n)
-        for label in zip(labels_raw[1:], labels_valid[1:]):
-            fake = run.synth(cache, label, refs, prev_l, prev_i,
-                             cfg.n_frames_G > 1)["img_final"]
+        cache = encode_references(cfg, run.call, ref_valid, refs[2], labels_valid[0])
+        for label in zip(labels_raw, labels_valid):
+            fake = run.synth(cache, label, refs, prevs)["img_final"]
             frames.append(fake)
-            prev_l, prev_i = _roll(prev_l, label[1]), _roll(prev_i, fake)
+            if prevs is None:
+                prevs = {"label": label[1].repeat(1, 1, 1, n), "fake": fake.repeat(1, 1, 1, n)}
+            else:
+                prevs = roll_prevs(prevs, label=label[1], fake=fake)
     return torch.stack(frames)

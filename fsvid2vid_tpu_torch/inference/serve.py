@@ -28,10 +28,13 @@ autocast: bf16 parameters (batch-norm statistics and spectral state stay
 f32, parallel/precision.py) and bf16 inputs, and frames come out in bf16.
 Inputs and outputs are channel-last, as the pipeline's: labels
 (B, H, W, Cl) (street: class indices, Cl = 1, one-hot encoded inside),
-references (B, K, H, W, *), frames (B, H, W, 3).  The per-frame semantics
-are those of InferencePipeline.step, held by tests/test_torch_serve.py, and
-so is the layout: the generator runs channels-last, its 4-D parameters
-saved channels-last and its inputs taken as channels-last views.
+references (B, K, H, W, *), frames (B, H, W, 3).  The programs run the
+pipeline's own frame (`encode_references`, `frame_step`, the ring's
+`roll_prevs`), held against InferencePipeline.step by
+tests/test_torch_serve.py, and its layout: the generator runs
+channels-last, its 4-D parameters saved channels-last and its inputs taken
+as channels-last views.  Only the ring's first state is the export's own:
+frame 0 tiled, as JAX's export and `run_sequence` start it.
 """
 from __future__ import annotations
 
@@ -78,65 +81,45 @@ class _Methods(nn.Module):
         return getattr(self.g, name)(*args, **kw)
 
 
-def _nchw(x):
-    return None if x is None else x.movedim(-1, -3)
-
-
-def _nhwc(x):
-    return x.movedim(-3, -1)
-
-
 def _build_programs(cfg: Config, netG):
-    """The three serving programs over a folded eval-mode generator."""
+    """The three serving programs over a folded eval-mode generator: the
+    pipeline's frame (inference/pipeline.py `encode_references`,
+    `frame_step`) with the parameters as the first input."""
+    from fsvid2vid_tpu_torch.inference.pipeline import encode_references, frame_step
+    from fsvid2vid_tpu_torch.models.generator import roll_prevs
     from fsvid2vid_tpu_torch.models.input_process import encode_label, use_valid_labels
     methods = _Methods(netG)
 
-    def call(params, name, *args, **kw):
+    def caller(params):
         prefixed = {"g." + k: v for k, v in params.items()}
-        return torch.func.functional_call(methods, prefixed, (name,) + args, kw)
+        return lambda name, *args, **kw: torch.func.functional_call(
+            methods, prefixed, (name,) + args, kw)
 
     def valid(x):
         return use_valid_labels(cfg, encode_label(cfg, x)).to(x.dtype)
 
     def encode(params, ref_labels, ref_images, first_label):
-        ref_valid = _nchw(valid(ref_labels))
-        if cfg.n_shot == 1:
-            return call(params, "encode_reference", ref_valid, _nchw(ref_images),
-                        _nchw(valid(first_label)))
-        return call(params, "encode_reference_multi", ref_valid, _nchw(ref_images))
+        ref_valid = valid(ref_labels)
+        first = valid(first_label) if cfg.n_shot == 1 else None   # read at K = 1 only
+        return encode_references(cfg, caller(params), ref_valid, ref_images, first)
 
-    def synth(params, cache, label, ref_labels, ref_images, prev_l, prev_i, warp_prev):
+    def frame(params, cache, label, ref_labels, ref_images, prevs):
         label_valid = valid(label)
-        args = (_nchw(label_valid), _nchw(valid(ref_labels)), _nchw(ref_images))
-        if cfg.n_shot == 1:
-            out = call(params, "synthesize", *args, cache, _nchw(prev_l), _nchw(prev_i),
-                       warp_prev=warp_prev)
-            extras = {}
-        else:
-            # K > 1: the attention depends on the current label, so each frame
-            # runs the forward from the label-independent prefix
-            out = call(params, "forward", *args, _nchw(prev_l), _nchw(prev_i),
-                       warp_prev=warp_prev, prefix=cache)
-            extras = {"ref_idx": out["ref_idx"], "atn": out["atn"]}
-        return _nhwc(out["img_final"]), label_valid, extras
+        out = frame_step(cfg, caller(params), cache, label_valid, valid(ref_labels),
+                         ref_images, prevs)
+        extras = {"ref_idx": out["ref_idx"], "atn": out["atn"]} if cfg.n_shot > 1 else {}
+        return out["img_final"], label_valid, extras
 
     n = max(1, cfg.n_frames_G - 1)
 
     def step0(params, cache, label, ref_labels, ref_images):
-        frame, label_valid, extras = synth(params, cache, label, ref_labels, ref_images,
-                                           None, None, False)
-        prevs = {"label": label_valid.repeat(1, 1, 1, n), "fake": frame.repeat(1, 1, 1, n)}
-        return frame, prevs, extras
+        fake, label_valid, extras = frame(params, cache, label, ref_labels, ref_images, None)
+        prevs = {"label": label_valid.repeat(1, 1, 1, n), "fake": fake.repeat(1, 1, 1, n)}
+        return fake, prevs, extras
 
     def step(params, cache, label, ref_labels, ref_images, prevs):
-        frame, label_valid, extras = synth(params, cache, label, ref_labels, ref_images,
-                                           prevs["label"], prevs["fake"], cfg.n_frames_G > 1)
-
-        def roll(buf, new):
-            c = new.shape[-1]
-            return new if buf.shape[-1] == c else torch.cat([buf[..., c:], new], -1)
-        return frame, {"label": roll(prevs["label"], label_valid),
-                       "fake": roll(prevs["fake"], frame)}, extras
+        fake, label_valid, extras = frame(params, cache, label, ref_labels, ref_images, prevs)
+        return fake, roll_prevs(prevs, label=label_valid, fake=fake), extras
 
     return _Program(encode), _Program(step0), _Program(step)
 

@@ -79,6 +79,19 @@ def pick_ref(refs: torch.Tensor, ref_idx: Optional[torch.Tensor]) -> torch.Tenso
     return refs[torch.arange(refs.shape[0], device=refs.device), ref_idx]
 
 
+def roll_prevs(prevs: Dict[str, torch.Tensor], **new: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The previous-frames ring advanced by one frame (reference
+    vid2vid_model.py:203): each buffer prevs[key] stacks n_frames_G - 1
+    channel-last frames along its last axis, oldest first; its oldest frame
+    goes and new[key] comes last.  Returns the buffers named in `new`."""
+    def roll(buf, frame):
+        c = frame.shape[-1]
+        if buf.shape[-1] == c:   # n_frames_G == 2: the buffer holds one frame
+            return frame
+        return torch.cat([buf[..., c:], frame], -1)
+    return {key: roll(prevs[key], frame) for key, frame in new.items()}
+
+
 # the VAE's latent size (reference generator.py:137) and the grid the fc
 # stacks pool each reference feature map to under use_label_ref='concat'
 Z_DIM = 256

@@ -28,14 +28,12 @@ the inputs lie, their dtype and their channel count, before any launch:
                                              the grid, QK^T streamed in
                                              64-channel chunks)
 
-csrc/flash_ref_attention.cu, the CUDA-core design the tensor-core routes
-replaced ("cuda_core", c <= 128), is no route's kernel any more; it stays
-for comparison (`_launch_cuda_core`).  The generator sends c > 512 to
-`chunked_ref_attention`, as the JAX generator sends it to its XLA branch.
-Each is built with nvcc for sm_90a on first use into fsvid2vid_tpu_torch/build/
-and loaded with ctypes (ops/cuda_build.py).  A CUDA call launches the routed
-kernel or raises: nothing falls back to another kernel or to the plain
-version.  The dispatch is the torch operator fsv::flash_ref_attention,
+The generator sends c > 512 to `chunked_ref_attention`, as the JAX
+generator sends it to its XLA branch.  The kernels are built with nvcc for
+sm_90a on first use into fsvid2vid_tpu_torch/build/ and loaded with ctypes
+(ops/cuda_build.py).  A CUDA call launches the routed kernel or raises:
+nothing falls back to another kernel or to the plain version.  The
+dispatch is the torch operator fsv::flash_ref_attention,
 registered when this module is imported (its fake implementation gives the
 output shapes and launches nothing), so that torch.export traces through it
 and a saved program calls it by name (inference/serve.py).
@@ -51,7 +49,7 @@ import torch
 from fsvid2vid_tpu_torch.ops.cuda_build import CudaLibrary
 
 MAX_C = 512            # channels B1 takes (csrc MAX_C; the JAX generator's flash limit)
-NARROW_MAX_C = 128     # the narrow walk's (csrc NARROW_MAX_C) and the CUDA-core kernel's
+NARROW_MAX_C = 128     # channels of the narrow walk (csrc NARROW_MAX_C)
 SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
 
 
@@ -118,16 +116,6 @@ def wide_slices(c: int, has_lf: bool) -> int:
     return -(-boxes // WIDE_VALUE_BOXES)
 
 
-def _declare(lib):
-    fn = lib.fsv_flash_ref_attention
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    smem = lib.fsv_flash_ref_attention_smem_bytes
-    smem.argtypes = [ctypes.c_int] * 3
-    smem.restype = ctypes.c_size_t
-
-
 def _declare_sm90(lib):
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.fsv_flash_ref_attention_sm90
@@ -143,7 +131,6 @@ def _declare_sm90(lib):
         fn.restype = ctypes.c_size_t
 
 
-KERNEL = CudaLibrary("flash_ref_attention", _declare)   # the CUDA-core design
 KERNEL_SM90 = CudaLibrary("flash_ref_attention_sm90", _declare_sm90)   # every route
 
 
@@ -320,35 +307,7 @@ def _launch_tc(route, query, key, xf, lf, n_refs):
     return out_x, out_l, vis
 
 
-def _launch_cuda_core(query, key, xf, lf, n_refs):
-    """The CUDA-core kernel, f32 and bf16, c <= 128: the previous design,
-    launched only to compare with."""
-    _check(query, key, xf, lf, n_refs)
-    if query.shape[2] > NARROW_MAX_C:
-        raise ValueError(f"flash_ref_attention cuda_core: c={query.shape[2]} outside "
-                         f"1..{NARROW_MAX_C} (the kernel stages c channels in shared memory)")
-    lib = KERNEL.load()
-    b, hw, c = query.shape
-    smem = lib.fsv_flash_ref_attention_smem_bytes(c, n_refs, lf is not None)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"flash_ref_attention: n_refs={n_refs} needs {smem} "
-                         f"bytes of shared memory (limit {SMEM_LIMIT})")
-    out_x, out_l, vis = _outputs(query, lf, n_refs)
-    with torch.cuda.device(query.device):
-        err = lib.fsv_flash_ref_attention(
-            query.data_ptr(), key.data_ptr(), xf.data_ptr(),
-            lf.data_ptr() if lf is not None else None,
-            out_x.data_ptr(), out_l.data_ptr() if out_l is not None else None,
-            vis.data_ptr(), b, hw, key.shape[1], c, n_refs,
-            int(query.dtype == torch.bfloat16),
-            torch.cuda.current_stream(query.device).cuda_stream)
-    _raise_on(err, "cuda_core")
-    _count("cuda_core")
-    return out_x, out_l, vis
-
-
-_LAUNCH = {**{route: functools.partial(_launch_tc, route) for route in _TC_ROUTES},
-           "cuda_core": _launch_cuda_core}
+_LAUNCH = {route: functools.partial(_launch_tc, route) for route in _TC_ROUTES}
 
 
 # B1 as a registered operator, so that torch.export and FakeTensor can trace

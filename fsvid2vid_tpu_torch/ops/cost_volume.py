@@ -23,13 +23,9 @@ kernel takes; `route_for` names the route from the device alone:
                                  C and map size, B and H up to 65,535)
 
 `tc_plan` mirrors the kernel's tiling (fsv_cost_volume_tc_plan).  The
-CUDA-core kernel csrc/cost_volume.cu (any stride, D <= 64), the route of
-every grid but stride 2 with D <= 25 until the tensor-core kernel took them
-all, is no route's kernel; `_launch_cuda_core` stays so that it can be
-checked and timed beside it.  Each is built with nvcc for sm_90a on first
-use and loaded with ctypes (ops/cuda_build.py).  `cost_volume_cuda`
-launches the tensor-core kernel or raises, with no fallback to the other
-kernel; `correlation` runs the plain version only for CPU tensors.  The
+kernel is built with nvcc for sm_90a on first use and loaded with ctypes
+(ops/cuda_build.py).  `cost_volume_cuda` launches it or raises;
+`correlation` runs the plain version only for CPU tensors.  The
 dispatch is the torch operator fsv::cost_volume, registered when this
 module is imported (its fake implementation gives the output shape and
 launches nothing).  The backward is plain PyTorch on every device, as the
@@ -56,16 +52,6 @@ TC_MAX_NT = 5          # n8 tiles of f2 columns per class
 TC_MAX_DW = 8 * TC_MAX_NT - 15   # horizontal shifts per window
 
 
-def _declare(lib):
-    fn = lib.fsv_cost_volume
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.fsv_cost_volume_smem_bytes.argtypes = [ctypes.c_int] * 2
-    lib.fsv_cost_volume_smem_bytes.restype = ctypes.c_size_t
-    lib.fsv_cost_volume_max_d.argtypes = []
-    lib.fsv_cost_volume_max_d.restype = ctypes.c_int
-
-
 def _declare_tc(lib):
     fn = lib.fsv_cost_volume_tc
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -78,7 +64,6 @@ def _declare_tc(lib):
     lib.fsv_cost_volume_tc_plan.restype = ctypes.c_int
 
 
-KERNEL = CudaLibrary("cost_volume", _declare)
 KERNEL_TC = CudaLibrary("cost_volume_tc", _declare_tc)
 
 
@@ -216,31 +201,6 @@ def _launch_tc(f1, f2, max_displacement, stride):
     return out
 
 
-def _launch_cuda_core(f1, f2, max_displacement, stride):
-    """The CUDA-core kernel, the previous design and no route's kernel: any
-    stride and D <= 64; checked and timed beside the tc kernel."""
-    _check_cuda(f1, f2, max_displacement, stride)
-    lib = KERNEL.load()
-    b, c, h, w = f1.shape
-    d = 2 * (max_displacement // stride) + 1
-    if d > lib.fsv_cost_volume_max_d():
-        raise ValueError(f"cost_volume_cuda: displacement grid {d} x {d} above "
-                         f"the kernel's {lib.fsv_cost_volume_max_d()}")
-    smem = lib.fsv_cost_volume_smem_bytes(max_displacement, stride)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"cost_volume_cuda: max_displacement={max_displacement} "
-                         f"needs {smem} bytes of shared memory (limit {SMEM_LIMIT})")
-    out = torch.empty(b, d * d, h, w, device=f1.device, dtype=f1.dtype)
-    with torch.cuda.device(f1.device):
-        err = lib.fsv_cost_volume(
-            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, c, h, w,
-            max_displacement, stride, int(f1.dtype == torch.bfloat16),
-            torch.cuda.current_stream(f1.device).cuda_stream)
-    _raise_on(err, "cuda_core")
-    _count("cuda_core")
-    return out
-
-
 def cost_volume_cuda(f1: torch.Tensor, f2: torch.Tensor,
                      max_displacement: int = 20, stride: int = 2) -> torch.Tensor:
     """The tensor-core kernel on CUDA tensors (forward only).  Raises on
@@ -249,10 +209,9 @@ def cost_volume_cuda(f1: torch.Tensor, f2: torch.Tensor,
     return _launch_tc(f1, f2, max_displacement, stride)
 
 
-# launches of either kernel, and by route ("cuda_core" only from direct
-# calls of _launch_cuda_core)
+# launches of the kernel, and by route
 cost_volume_cuda.launches = 0
-cost_volume_cuda.launches_by_route = {"tc": 0, "cuda_core": 0}
+cost_volume_cuda.launches_by_route = {"tc": 0}
 
 
 def cost_volume_backward_plain(f1, f2, grad, max_displacement: int, stride: int):

@@ -65,7 +65,7 @@ from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.losses import collector as lc
 from fsvid2vid_tpu_torch.losses.gan import kld_loss
 from fsvid2vid_tpu_torch.models.face_refiner import refine_face_region
-from fsvid2vid_tpu_torch.models.generator import Z_DIM, pick_ref
+from fsvid2vid_tpu_torch.models.generator import Z_DIM, pick_ref, roll_prevs
 from fsvid2vid_tpu_torch.models.input_process import (
     combine_fg_mask, encode_label, get_fg_mask, use_valid_labels)
 from fsvid2vid_tpu_torch.models.remat import remat
@@ -100,15 +100,8 @@ def init_prevs(cfg: Config, batch) -> Dict[str, Tensor]:
 
 def advance_prevs(cfg: Config, prevs, tgt_label_valid, tgt_image, fake_image):
     """Detached ring-buffer advance (reference vid2vid_model.py:169-176)."""
-    def roll(buf, new):
-        new = new.detach().float()
-        c = new.shape[-1]
-        if buf.shape[-1] == c:   # n_frames_G == 2: the buffer holds one frame
-            return new
-        return torch.cat([buf[..., c:], new], -1)
-    return {"label": roll(prevs["label"], tgt_label_valid),
-            "real": roll(prevs["real"], tgt_image),
-            "fake": roll(prevs["fake"], fake_image)}
+    new = {"label": tgt_label_valid, "real": tgt_image, "fake": fake_image}
+    return roll_prevs(prevs, **{key: x.detach().float() for key, x in new.items()})
 
 
 def _nchw(x):

@@ -16,9 +16,9 @@ then, for each of its cases:
   * "ablations" leave out part of the work to show what it costs or what it
     guards against; their error against the plain version is printed, not
     checked;
-  * on a timed case all are timed by CUDA events (with B2's CUDA-core kernel
-    beside them) in turns: in order, reversed, in order, reversed, with the
-    card's SM clock, power draw and temperature after each round.
+  * on a timed case all are timed by CUDA events in turns: in order,
+    reversed, in order, reversed, with the card's SM clock, power draw and
+    temperature after each round.
 Prints one JSON line per build and per case, then the card's name and power
 limit.  Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -163,7 +163,7 @@ def b1_study(torch, dtype_name):
                 same=lambda got, base, ref, case: all(
                     a is None or torch.equal(a, r) for a, r in zip(got, base)),
                 cases=("ragged", "short_refs", "sharp", "slice") if f32 else ("slice",),
-                timed=("slice",), reps=5 if f32 else 10, beside={})
+                timed=("slice",), reps=5 if f32 else 10)
 
 
 def b2_study(torch):
@@ -195,9 +195,7 @@ def b2_study(torch):
     return dict(**B2, library=cv.KERNEL_TC, declare=cv._declare_tc, make=make, call=call,
                 error=error, plain=lambda inputs: (cv.cost_volume_plain(*inputs, md, stride),),
                 same=lambda got, base, ref, case: error(got, ref) <= cs.CV_TOL[case],
-                cases=("float32", "bfloat16"), timed=("float32", "bfloat16"), reps=20,
-                beside={"cuda_core": lambda inputs: (
-                    cv._launch_cuda_core(*inputs, md, stride),)})
+                cases=("float32", "bfloat16"), timed=("float32", "bfloat16"), reps=20)
 
 
 def run_study(torch, name, study):
@@ -218,8 +216,6 @@ def run_study(torch, name, study):
             ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln})})
     fns = {v: (lambda inputs, lib=lib: study["call"](lib.load(), inputs))
            for v, lib in libs.items()}
-    fns.update(study["beside"])
-    checked = [*study["variants"], *study["beside"]]
     for case in study["cases"]:
         inputs = study["make"](case)
         ref = study["plain"](inputs)
@@ -228,7 +224,7 @@ def run_study(torch, name, study):
         for v, fn in fns.items():
             got = fn(inputs)
             res["max_abs_err"][v] = study["error"](got, ref)
-            if v in checked and not study["same"](got, base, ref, case):
+            if v in study["variants"] and not study["same"](got, base, ref, case):
                 raise AssertionError(f"{name} {v} ({case}) does not compute the base "
                                      f"kernel's function: {res['max_abs_err']}")
         if case in study["timed"]:

@@ -55,7 +55,7 @@ def test_route_rule(c):
 
 
 def test_every_channel_count_takes_a_tensor_core_route():
-    """No c in 1..512 of either dtype reaches the CUDA-core kernel."""
+    """Every c in 1..512 of either dtype takes a tensor-core route."""
     for dtype in (torch.bfloat16, torch.float32):
         routes = {ak.route_for("cuda", dtype, c) for c in range(1, ak.MAX_C + 1)}
         assert routes <= set(ak._TC_ROUTES), routes

@@ -187,9 +187,10 @@ def _fake_nvcc(tmp_path, body):
 
 
 def test_both_kernels_share_one_build_helper():
-    assert isinstance(ak.KERNEL, cuda_build.CudaLibrary)
-    assert isinstance(cv.KERNEL, cuda_build.CudaLibrary)
-    for lib, name in ((ak.KERNEL, "flash_ref_attention"), (cv.KERNEL, "cost_volume")):
+    assert isinstance(ak.KERNEL_SM90, cuda_build.CudaLibrary)
+    assert isinstance(cv.KERNEL_TC, cuda_build.CudaLibrary)
+    for lib, name in ((ak.KERNEL_SM90, "flash_ref_attention_sm90"),
+                      (cv.KERNEL_TC, "cost_volume_tc")):
         assert lib.source == cuda_build.CSRC_DIR / f"{name}.cu"
         assert lib.source.exists()
         assert lib.library == cuda_build.BUILD_DIR / f"lib{name}.so"
@@ -204,14 +205,14 @@ def test_build_compiles_for_sm_90a_into_the_build_dir(tmp_path, monkeypatch):
                         % (tmp_path / "args"))
     monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
-    lib = cuda_build.CudaLibrary("cost_volume", lambda lib: None)
+    lib = cuda_build.CudaLibrary("cost_volume_tc", lambda lib: None)
     assert lib.library.parent == tmp_path / "build"
     seconds, _ = lib.build(verbose=True)
     args = (tmp_path / "args").read_text().split()
     assert "arch=compute_90a,code=sm_90a" in args and "-shared" in args
     assert args[-1] == str(lib.source) and "-v" in args
     assert lib.library.read_text() == "lib\n" and seconds >= 0
-    assert os.listdir(tmp_path / "build") == ["libcost_volume.so"]
+    assert os.listdir(tmp_path / "build") == ["libcost_volume_tc.so"]
 
 
 def test_header_newer_than_library_marks_it_out_of_date(tmp_path, monkeypatch):
@@ -244,7 +245,7 @@ def test_failed_build_raises_and_leaves_nothing(tmp_path, monkeypatch):
     bindir = _fake_nvcc(tmp_path, "echo broken >&2\nexit 3\n")
     monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
-    lib = cuda_build.CudaLibrary("cost_volume", lambda lib: None)
+    lib = cuda_build.CudaLibrary("cost_volume_tc", lambda lib: None)
     with pytest.raises(RuntimeError, match="(?s)nvcc failed.*broken"):
         lib.load()
     assert os.listdir(tmp_path / "build") == []
@@ -255,4 +256,4 @@ def test_missing_compiler_raises(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_build.CudaLibrary("cost_volume", lambda lib: None).build()
+        cuda_build.CudaLibrary("cost_volume_tc", lambda lib: None).build()

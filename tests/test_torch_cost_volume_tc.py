@@ -50,7 +50,7 @@ from tests.test_torch_cost_volume import ATOL, CASES, nchw, nhwc, pallas_compare
     ("cuda", 26, 2, "tc"),      # D = 27, two windows
     ("cuda", 20, 1, "tc"),
     ("cuda", 21, 3, "tc"),
-    ("cuda", 32, 1, "tc"),      # D = 65, above the CUDA-core kernel's 64
+    ("cuda", 32, 1, "tc"),      # D = 65, three windows
     ("cuda", 40, 1, "tc"),      # D = 81
 ])
 def test_tc_route_rule(device_type, md, stride, route):
@@ -64,14 +64,13 @@ def test_tc_kernel_has_its_own_build():
     assert cv.KERNEL_TC.library == cuda_build.BUILD_DIR / "libcost_volume_tc.so"
 
 
-@pytest.mark.parametrize("launch", ["_launch_tc", "_launch_cuda_core"])
 @pytest.mark.parametrize("md,stride", [(4, 2), (32, 1), (40, 1)])
-def test_launchers_refuse_cpu_tensors(launch, md, stride):
-    """What either launcher refuses here is the device, whatever the grid;
+def test_launchers_refuse_cpu_tensors(md, stride):
+    """What the launcher refuses here is the device, whatever the grid;
     the tc kernel takes D = 65 and 81 on the card (C.4)."""
     f1 = torch.zeros(1, 4, 6, 6)
     with pytest.raises(ValueError, match="not CUDA"):
-        getattr(cv, launch)(f1, f1.clone(), md, stride)
+        cv._launch_tc(f1, f1.clone(), md, stride)
 
 
 def _source_constants():

@@ -61,11 +61,13 @@ class Pair:
         self.ref_images = np.tanh(rng.randn(1, n_shot, h, w, 3)).astype(np.float32)
         self.prev_image = np.tanh(rng.randn(1, h, w, 3)).astype(np.float32)
         self.jm = JaxGenerator(cfg, atn_flash="interpret")
+        n = max(1, cfg.n_frames_G - 1)   # the ring's slots: the flow network's inputs
         shapes = jax.eval_shape(
             lambda *a: self.jm.init(*a, warp_prev=True, train=False),
             jax.random.PRNGKey(0), *map(jnp.asarray, (
                 self.labels[0], self.ref_labels, self.ref_images,
-                self.labels[1], self.prev_image)))
+                np.concatenate([self.labels[1]] * n, -1),
+                np.concatenate([self.prev_image] * n, -1))))
         self.variables = randomize(shapes, rng)
         self.folded = jax_fold(self.variables)
         self.tcfg = tconfig.Config.from_json(cfg.to_json())
