@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, both at
+Builds the port's CUDA kernels from the sources in this checkout, all at
 once (one nvcc per source): multi-reference flash attention on six
 tensor-core routes (bf16, and f32 on split-bf16 products, each for
 c % 8 == 0 up to 128 channels, for c % 8 != 0 on inputs zero-padded by a
-pre-pass, and for 128 < c <= 512 on the wide walk), and the FlowNetC cost
+pre-pass, and for 128 < c <= 512 on the wide walk), the FlowNetC cost
 volume on the tensor cores for every displacement grid (a banded product
-over classes of pixels mod the stride and windows of shifts).  It holds
+over classes of pixels mod the stride and windows of shifts), and the
+served norm's one pass (normalise, SPADE-modulate, leaky ReLU).  It holds
 each against its plain PyTorch version on the card, times each attention
-route at the shape of the path it serves and the cost volume at each grid,
-twice each, and then drives the port's two main paths end to end at the
-full width of face_config:
+route at the shape of the path it serves, the cost volume at each grid and
+the norm at the serving cells' two largest levels, twice each, and then
+drives the port's two main paths end to end at the full width of
+face_config:
 
   * serving: K-shot face synthesis at 512 px with K = 8 references (the
     attention kernel once per frame: bf16 frames on the bf16 tensor-core
@@ -206,9 +208,10 @@ def phase_build():
     import re
     from fsvid2vid_tpu_torch.ops import attention_kernel as ak
     from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.ops import norm_modulate as nm
     t0 = time.perf_counter()
     pending = [(lib, lib.start_build(verbose=True))
-               for lib in (ak.KERNEL_SM90, cv.KERNEL_TC)]
+               for lib in (ak.KERNEL_SM90, cv.KERNEL_TC, nm.KERNEL)]
     for lib, finish in pending:
         seconds, log = finish()
         ptxas = [ln.strip() for ln in log.splitlines()
@@ -513,6 +516,81 @@ def phase_cost_volume(torch):
     return res
 
 
+# the served norm (ops/norm_modulate.py) at the serving cells' two largest
+# levels of the main branch, (B, C, H, W): up_0's bn_s / bn_0 at fin = 64
+# and up_1's at 128, street (32 streams at 512 x 256) and face (8 at 512 px)
+NORM_SHAPES = {"street_up0": (32, 64, 256, 512), "street_up1": (32, 128, 128, 256),
+               "face_up0": (8, 64, 512, 512), "face_up1": (8, 128, 256, 256)}
+# (x dtype, maps, maps' and output's dtype, slope) at every shape: the main
+# branch's norms under autocast (x f32 from the upsample or bf16 from a
+# convolution; street has one map, face's two full-size levels three)
+NORM_VARIANTS = [("float32", 1, "bfloat16", 0.2), ("bfloat16", 1, "bfloat16", 0.2),
+                 ("float32", 3, "bfloat16", 0.2), ("bfloat16", 3, "bfloat16", 0.2)]
+# and at street_up1 only: the flow net's plain norm (a convolution's bf16
+# output, no map, its LeakyReLU a module of its own) and the f32 pipeline
+NORM_EXTRA = [("bfloat16", 0, "bfloat16", None), ("float32", 1, "float32", 0.2)]
+# kernel vs the same arithmetic in f32 (the plain version on f32 copies):
+# the kernel rounds once to the output dtype, half an ulp, 2^-8 of |y| in
+# bf16 (2^-24 in f32), beside f32 rounding of the terms (~1e-6 at |y| ~ 10)
+NORM_REL = {"bfloat16": 2.0 ** -8, "float32": 2.0 ** -22}
+NORM_ABS = 1e-5
+
+
+def check_norm_modulate(torch, case, x_dtype, n_maps, out_dtype, slope):
+    """The kernel against the plain version in f32, the plain version in
+    the working types (the chain the norms ran before) against the same,
+    both timed, and the kernel's share of its bytes bound."""
+    from fsvid2vid_tpu_torch.ops import norm_modulate as nm
+    b, c, h, w = NORM_SHAPES[case]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    cl = torch.channels_last
+    odt = getattr(torch, out_dtype)
+    x = (2 * torch.randn(b, c, h, w, device="cuda", generator=g) + 0.5).to(
+        getattr(torch, x_dtype)).contiguous(memory_format=cl)
+    scale = 0.5 + torch.rand(c, device="cuda", generator=g)
+    shift = 0.5 * torch.randn(c, device="cuda", generator=g)
+    maps = [(0.3 * torch.randn(b, 2 * c, h, w, device="cuda", generator=g)).to(odt)
+            .contiguous(memory_format=cl) for _ in range(n_maps)]
+    padded = maps + [None] * (nm.MAX_MAPS - n_maps)
+    call = lambda: nm.norm_modulate_op(x, scale, shift, *padded, slope, odt)
+    plain = lambda: nm.norm_modulate_plain(x, scale, shift, maps, slope).to(odt)
+    out = call()
+    torch.cuda.synchronize()
+    want = nm.norm_modulate_plain(x.float(), scale, shift, [m.float() for m in maps], slope)
+    err = (out.float() - want).abs()
+    excess = (err - NORM_REL[out_dtype] * want.abs() - NORM_ABS).max().item()
+    res = {"phase": "kernel_check", "kernel": "norm_modulate", "case": case,
+           "shape": NORM_SHAPES[case], "x_dtype": x_dtype, "maps": n_maps,
+           "out_dtype": out_dtype, "slope": slope, "max_abs_err": err.max().item(),
+           "excess_over_tol": excess,
+           "max_abs_err_plain": (plain().float() - want).abs().max().item(),
+           "ok": (out.dtype == odt and out.is_contiguous(memory_format=cl)
+                  and bool(torch.isfinite(out).all()) and excess <= 0)}
+    nbytes = x.numel() * (x.element_size() + out.element_size()) + sum(
+        m.numel() * m.element_size() for m in maps)
+    del out, want, err
+    turns = [cuda_ms(torch, call, 10) for _ in range(2)]
+    res.update(bytes=nbytes, bound_ms=1e3 * nbytes / H100_BYTES_PER_S, bound_by="bytes",
+               turns_ms=turns, ms=sum(turns) / 2, plain_ms=cuda_ms(torch, plain, 3),
+               library_ms=None)   # no single PyTorch call computes this function
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["bytes_per_s"] = nbytes / (res["ms"] / 1e3)
+    emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"norm_modulate {case} {x_dtype} x {n_maps} maps: "
+                             f"error {excess} over its tolerance")
+    return res
+
+
+def phase_norm_modulate(torch):
+    res = {}
+    for case in NORM_SHAPES:
+        for variant in NORM_VARIANTS + (NORM_EXTRA if case == "street_up1" else []):
+            res[(case,) + variant] = check_norm_modulate(torch, case, *variant)
+            torch.cuda.empty_cache()
+    return res
+
+
 # ----------------------------------------------------------------------
 # the serving path
 # ----------------------------------------------------------------------
@@ -634,6 +712,7 @@ def phase_slice(torch):
     from fsvid2vid_tpu_torch.config import face_config
     from fsvid2vid_tpu_torch.inference.pipeline import InferencePipeline
     from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    from fsvid2vid_tpu_torch.ops import norm_modulate as nm
     # init_variance 1: activations of order one, so the attention is decisive
     cfg = face_config(fine_size=512, load_size=512, n_shot=8, batch_size=1,
                       is_train=False, init_variance=1.0)
@@ -645,11 +724,14 @@ def phase_slice(torch):
            "frames_per_dtype": 2 * N_FRAMES}
     zero_b1(ak)
     counts = ak.flash_ref_attention.launches_by_route
-    out, by_dtype = {}, {}
+    out, by_dtype, nm_runs = {}, {}, {}
     for dtype in ("bfloat16", "float32"):
         before = dict(counts)
         pipe = InferencePipeline(cfg, g, compute_dtype=dtype)
+        zero_nm(nm)
         out[dtype] = run_frames(torch, pipe, labels, ref_labels, ref_images)
+        nm_runs[dtype] = {"launches": nm.norm_modulate.launches,
+                          "plain": nm.norm_modulate.calls_by_route["plain"]}
         by_dtype[dtype] = {r: counts[r] - before[r] for r in counts}
     launches = ak.flash_ref_attention.launches
     res.update(launches=launches, launches_by_route=dict(counts),
@@ -664,16 +746,26 @@ def phase_slice(torch):
             "float32": b1_want(ak, sm90_f32=2 * N_FRAMES)}
     if by_dtype != want:
         raise AssertionError(f"launches by dtype and route {by_dtype} != {want}")
+    norms = {}
     for dtype in ("bfloat16", "float32"):   # one warm frame with warp_prev
         pipe = InferencePipeline(cfg, g, compute_dtype=dtype)
-        pipe.reset(ref_labels, ref_images, labels[0])
-        pipe.step(labels[0])
+        reset = count_norms(torch, nm, g, lambda: pipe.reset(ref_labels, ref_images, labels[0]))
+        step = count_norms(torch, nm, g, lambda: pipe.step(labels[0]))
+        # the main run: run_frames' two passes of a reset and N_FRAMES steps
+        want = 2 * (reset["norms"] + N_FRAMES * step["norms"])
+        norms[dtype] = {"reset": reset, "step": step, "run": nm_runs[dtype], "run_want": want}
+        if not (step["norms"] > 0 and all(c["launches"] == c["norms"] and c["plain"] == 0
+                                          for c in (reset, step))
+                and nm_runs[dtype] == {"launches": want, "plain": 0}):
+            raise AssertionError(f"{dtype}: norm kernel launches against the norms run "
+                                 f"{norms[dtype]}: one launch a norm, none on the plain route")
         name = {"bfloat16": "flash_ref_attention_sm90_kernel<__nv_bfloat16",
                 "float32": "flash_ref_attention_sm90_kernel<float"}[dtype]
         prof = res[f"profile_{dtype}"] = profile_step(torch, pipe, labels[1], find=name)
         if prof["found_launches"] != 1:
             raise AssertionError(f"the {dtype} frame's profile shows "
                                  f"{prof['found_launches']} launches of {name}, not 1")
+    res["norm_modulate"] = norms
 
     # the same f32 pipeline with the plain attention, on the card
     g.attention = ak.flash_ref_attention_plain
@@ -852,6 +944,7 @@ def phase_train(torch):
     """Face 256 px, batch 4, full width: the teacher and both train steps."""
     from fsvid2vid_tpu_torch.config import face_config
     from fsvid2vid_tpu_torch.ops import cost_volume as cv
+    from fsvid2vid_tpu_torch.ops import norm_modulate as nm
     from fsvid2vid_tpu_torch.training.flow_teacher import FlowTeacher
     from fsvid2vid_tpu_torch.training.state import TrainState, build_models
     from fsvid2vid_tpu_torch.training.step import train_step, train_step_faithful
@@ -879,6 +972,7 @@ def phase_train(torch):
     cv.cost_volume_cuda.launches = 0
     for route in cv.cost_volume_cuda.launches_by_route:
         cv.cost_volume_cuda.launches_by_route[route] = 0
+    zero_nm(nm)
     log, flow_calls = [], 0
     e_single, e_temporal = 1, cfg.niter_single + 1
     for step_fn in (train_step, train_step_faithful):
@@ -893,8 +987,10 @@ def phase_train(torch):
                                          e_single, "float32", log)
     launches = cv.cost_volume_cuda.launches
     by_route = dict(cv.cost_volume_cuda.launches_by_route)
+    norm_routes = dict(nm.norm_modulate.calls_by_route, launches=nm.norm_modulate.launches)
     res.update(sequences=log, steps=state.step, flow_calls=flow_calls,
-               cost_volume_launches=launches, cost_volume_launches_by_route=by_route)
+               cost_volume_launches=launches, cost_volume_launches_by_route=by_route,
+               norm_modulate=norm_routes)
     moved = {}
     for n, m in (("G", models.netG), ("D", models.netD)):
         params = list(m.parameters())
@@ -911,6 +1007,8 @@ def phase_train(torch):
                              "teacher call on the tensor-core route")
     if moved["G"] < 0.9 * moved["G_of"] or moved["D"] < 0.9 * moved["D_of"]:
         raise AssertionError(f"parameters did not move: {moved}")
+    if norm_routes["fused"] or norm_routes["launches"] or not norm_routes["plain"]:
+        raise AssertionError(f"training's norms: {norm_routes}, expected the plain route only")
     del models, teacher, state, before
     torch.cuda.empty_cache()
     return res
@@ -2649,6 +2747,30 @@ def b1_want(ak, **launches):
     return {route: launches.get(route, 0) for route in ak.flash_ref_attention.launches_by_route}
 
 
+def zero_nm(nm):
+    nm.norm_modulate.launches = 0
+    for route in nm.norm_modulate.calls_by_route:
+        nm.norm_modulate.calls_by_route[route] = 0
+
+
+def count_norms(torch, nm, net, fn):
+    """fn() once, with a forward hook on every SyncBatchNorm of `net`: the
+    norms it ran, the norm kernel's launches and the plain route's calls."""
+    from fsvid2vid_tpu_torch.models.layers import SyncBatchNorm
+    norms = []
+    hooks = [m.register_forward_hook(lambda *_: norms.append(1))
+             for m in net.modules() if isinstance(m, SyncBatchNorm)]
+    zero_nm(nm)
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"norms": len(norms), "launches": nm.norm_modulate.launches,
+            "plain": nm.norm_modulate.calls_by_route["plain"]}
+
+
 def sharpen_attention(torch, cfg, netG):
     """The last key and query norms x4 (energies x16), as `build` does, so
     that the K masses have a clear favourite at random init."""
@@ -3088,6 +3210,7 @@ def phase_serve_export_k8(torch, tmp):
     from fsvid2vid_tpu_torch.inference.pipeline import InferencePipeline
     from fsvid2vid_tpu_torch.inference.serve import export_params
     from fsvid2vid_tpu_torch.ops import attention_kernel as ak
+    from fsvid2vid_tpu_torch.ops import norm_modulate as nm
     from fsvid2vid_tpu_torch.utils import profiling
     cfg = face_config(fine_size=512, load_size=512, n_shot=8, batch_size=1,
                       is_train=False, init_variance=1.0)
@@ -3159,12 +3282,26 @@ def phase_serve_export_k8(torch, tmp):
     turns = []
     for who in ("session", "pipeline", "pipeline", "session"):
         zero_b1(ak)
+        zero_nm(nm)
         if who == "session":
             ms = session_frames(torch, session, labels, ref_labels, ref_images)[1]
         else:
             ms = run_frames(torch, pipe, labels, ref_labels, ref_images)[1]
-        turns.append({"who": who, "frame_ms": ms, "b1": b1_launches(ak)})
+        turns.append({"who": who, "frame_ms": ms, "b1": b1_launches(ak),
+                      "norm_launches": nm.norm_modulate.launches})
     res["turns"] = turns
+    # the norm kernel a step: once a norm of the pipeline's step, and once
+    # an fsv::norm_modulate node of the saved step program.  The export
+    # traced on the card sees its convolutions' outputs NCHW (fake tensor
+    # propagation), so its norms keep the plain route there: no node
+    pipe_step = count_norms(torch, nm, g, lambda: pipe.step(labels[1]))
+    session.reset(ref_labels, ref_images, labels[0])
+    session.step(labels[0])
+    session_step = count_norms(torch, nm, g, lambda: session.step(labels[1]))["launches"]
+    step_nodes = sum(1 for n in torch.export.load(os.path.join(out_dir, "step.pt2")).graph.nodes
+                     if n.op == "call_function" and "fsv.norm_modulate" in str(n.target))
+    res["norm_launches_a_step"] = {"pipeline": pipe_step, "session": session_step,
+                                   "session_program_nodes": step_nodes}
     median = lambda xs: sorted(xs)[len(xs) // 2]
     res["median_frame_ms"] = {who: median([m for t in turns if t["who"] == who
                                            for m in t["frame_ms"]])
@@ -3195,6 +3332,11 @@ def phase_serve_export_k8(torch, tmp):
     bad = [n for n, c in checks.items()
            if c["launches_by_route"] != want or not c["finite"] or c["ref_idx_check"]["flips"]]
     matched_check = checks["matched"]["ref_idx_check"]
+    if not (pipe_step["norms"] > 0 and pipe_step["plain"] == 0
+            and pipe_step["norms"] == pipe_step["launches"] and session_step == step_nodes):
+        raise AssertionError(f"serve_export_k8_512: norm kernel launches a step "
+                             f"{res['norm_launches_a_step']}: one a norm of the pipeline, "
+                             "one a node of the saved program")
     if (bad or child["models_imported"] or matched_check["held"] != SERVE_FRAMES
             or any(t["b1"] != want for t in turns if t["who"] == "session")):
         raise AssertionError(f"serve_export_k8_512: {bad}, models imported "
@@ -3549,6 +3691,7 @@ def main() -> int:
     timed("build", phase_build)
     kern = timed("kernels", phase_kernels, torch)
     cv_res = timed("cost_volume", phase_cost_volume, torch)
+    nm_res = timed("norm_modulate", phase_norm_modulate, torch)
     slice_res = timed("slice_k8_512", phase_slice, torch)
     kld_res = timed("slice_k8_512_kld_concat", phase_slice_kld_concat, torch)
     ngf64_res = timed("slice_k8_512_ngf64", phase_slice_ngf64, torch)
@@ -3696,7 +3839,16 @@ def main() -> int:
         "other": {f"{case}_{d}": {k: r.get(k) for k in cv_keys + (
                       "route", "d", "design_bound_ms", "bound_share",
                       "design_bound_share")}
-                  for (case, d), r in cv_res.items() if (case, d) != ("slice", "float32")}}]})
+                  for (case, d), r in cv_res.items() if (case, d) != ("slice", "float32")}}, {
+        "name": "norm_modulate", "route": "cuda", "card": smi,
+        "replaces": None,   # XLA fuses the chain on the TPU; no Pallas kernel
+        "source": "fsvid2vid_tpu_torch/csrc/norm_modulate.cu",
+        # launches in a served frame of slice_k8_512, one a norm
+        "launches_a_step": {d: n["step"]["launches"]
+                            for d, n in slice_res["norm_modulate"].items()},
+        "cases": {f"{case}_x{x[0]}_{maps}maps_{out[0]}": {
+            k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_share")}
+            for (case, x, maps, out, _), r in nm_res.items()}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

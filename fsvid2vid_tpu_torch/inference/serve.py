@@ -20,8 +20,13 @@ program and one set of programs serves any checkpoint of the same
 architecture (`export_params` writes another parameters file).  Each
 program is exported for the device type of the generator it is given and
 runs on that device type; at K > 1 `step0` and `step` call kernel B1 as the
-registered operator fsv::flash_ref_attention (ops/attention_kernel.py),
-which this module imports so that a loaded program finds it.
+registered operator fsv::flash_ref_attention (ops/attention_kernel.py), and
+every program calls the served norms' fsv::norm_modulate
+(ops/norm_modulate.py) where the generator's route takes it; this module
+imports both so that a loaded program finds them.  (A trace on a CUDA card
+sees the convolutions' outputs NCHW, where the eager card lays them out
+channels-last, so there the route keeps the plain norms; a trace on the
+CPU fuses them.)
 
 In bf16 the export follows the JAX package's recipe, not the pipeline's
 autocast: bf16 parameters (batch-norm statistics and spectral state stay
@@ -50,6 +55,7 @@ import torch.nn as nn
 from fsvid2vid_tpu_torch import resolve_device
 from fsvid2vid_tpu_torch.config import Config
 from fsvid2vid_tpu_torch.ops import attention_kernel  # noqa: F401  (registers fsv::flash_ref_attention)
+from fsvid2vid_tpu_torch.ops import norm_modulate  # noqa: F401  (registers fsv::norm_modulate)
 from fsvid2vid_tpu_torch.parallel.precision import bf16_params
 
 PROGRAMS = ("encode", "step0", "step")

@@ -4,7 +4,9 @@ served forward (inference/fold.py `serving_module` lays the weights out
 channels-last, inference/pipeline.py hands the inputs as channels-last
 views), where every convolution then runs on NHWC operands and the norms'
 elementwise work keeps the layout.  SPADE's per-sample 1 x 1 convolutions
-take batch_conv's batched-product route there (ops/batch_conv.py).
+take batch_conv's batched-product route there (ops/batch_conv.py), and each
+eval-mode batch norm runs as one pass with its SPADE modulations and the
+leaky ReLU that follows it (ops/norm_modulate.py).
 
 Parameter and buffer names are the reference's torch names, so the modules
 load the reference's state dicts directly:
@@ -32,8 +34,13 @@ import torch.nn.functional as F
 
 from fsvid2vid_tpu_torch.ops.batch_conv import batch_conv
 from fsvid2vid_tpu_torch.ops.image_ops import avg_pool, leaky_relu, resize_nearest
+from fsvid2vid_tpu_torch.ops.norm_modulate import (affine_plain, fused_route, modulate_plain,
+                                                   norm_modulate)
 from fsvid2vid_tpu_torch.ops.spectral_norm import spectral_normalize
 from fsvid2vid_tpu_torch.parallel import mesh
+
+
+LEAKY_SLOPE = 0.2   # actvn's (reference architecture.py:15-17)
 
 
 class _SpectralNormed(nn.Module):
@@ -117,7 +124,15 @@ class SyncBatchNorm(nn.Module):
     all-reduce adds them over the ranks, so that the gradient through the
     statistics reaches every rank's input.  The running variance's unbiased
     factor takes the global count.  torch.nn.SyncBatchNorm is not used: it
-    needs CUDA, and the CPU tests run their ranks on gloo."""
+    needs CUDA, and the CPU tests run their ranks on gloo.
+
+    `maps` (SPADE's, each (B, 2C, H, W): gamma | beta) modulate the
+    normalised x, and a leaky ReLU of `slope` follows where one is given.
+    At eval, a channels-last call that autograd does not record runs all of
+    it as one pass (ops/norm_modulate.py `fused_route`), its output in the
+    dtype the next convolution reads, on the (scale, shift) that
+    `fold_eval` computed once where they still hold; every other call
+    composes it as before."""
 
     eps = 1e-5
     momentum = 0.1
@@ -133,8 +148,12 @@ class SyncBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(features))
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
+        self._folded = None
 
-    def forward(self, x):
+    def forward(self, x, maps=(), slope=None):
+        if not self.training and fused_route(x, maps, self.weight, self.bias):
+            return norm_modulate(x, *self._eval_affine(), maps, slope)
+        norm_modulate.calls_by_route["plain"] += 1
         if self.training:
             x32 = x.float()
             n = x.shape[0] * x.shape[2] * x.shape[3]
@@ -149,14 +168,50 @@ class SyncBatchNorm(nn.Module):
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
+        scale, shift = self._affine(mean, var)
+        return modulate_plain(affine_plain(x, scale, shift), maps, slope)
+
+    def fold_eval(self):
+        """Compute the eval-mode (scale, shift) once, for the fused route to
+        reuse (inference/fold.py `serving_module`).  They are reused only
+        while the statistics and the affine map are the very tensors folded,
+        on the same storage and unchanged in place since: after a training
+        update, a loaded state dict, a copy of the module or in a functional
+        call (the serving export's trace) the route computes them afresh
+        from the tensors it sees."""
+        sources = self._sources()
+        if any(t.is_inference() for t in sources):   # such a tensor keeps no version
+            self._folded = None
+            return
+        with torch.no_grad():
+            scale, shift = self._affine(self.running_mean.float(), self.running_var.float())
+        self._folded = (scale, shift, [(t, t.data_ptr(), t._version) for t in sources])
+
+    def _sources(self):
+        return [t for t in (self.running_mean, self.running_var, self.weight, self.bias)
+                if t is not None]
+
+    def _eval_affine(self):
+        """The eval-mode (scale, shift): `fold_eval`'s where they hold."""
+        if self._folded is not None:
+            scale, shift, stamp = self._folded
+            now = self._sources()
+            if len(now) == len(stamp) and all(
+                    t is s and t.data_ptr() == p and t._version == v
+                    for t, (s, p, v) in zip(now, stamp)):
+                return scale, shift
+        return self._affine(self.running_mean.float(), self.running_var.float())
+
+    def _affine(self, mean, var):
+        """The per-channel (scale, shift) of the norm with these statistics
+        and the affine map, in f32."""
         scale = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             scale = scale * self.weight.float()
         shift = -mean * scale
         if self.bias is not None:
             shift = shift + self.bias.float()
-        y = torch.addcmul(shift[:, None, None], x.float(), scale[:, None, None])
-        return y.to(x.dtype)
+        return scale, shift
 
     def _global_stats(self, x32, n: int):
         """Mean and biased variance of the global batch, and the unbiased
@@ -174,7 +229,8 @@ class SyncBatchNorm(nn.Module):
 
 class InstanceNorm(nn.Module):
     """InstanceNorm2d with the reference's eps = 0.1 unless told otherwise
-    (the adaptive discriminator's takes torch's 1e-5)."""
+    (the adaptive discriminator's takes torch's 1e-5); `maps` and `slope` as
+    SyncBatchNorm's, composed after it."""
 
     def __init__(self, features: int, affine: bool = True, eps: float = 0.1):
         super().__init__()
@@ -185,14 +241,14 @@ class InstanceNorm(nn.Module):
         else:
             self.weight = self.bias = None
 
-    def forward(self, x):
+    def forward(self, x, maps=(), slope=None):
         x32 = x.float()
         mean = x32.mean((2, 3), keepdim=True)
         var = x32.var((2, 3), keepdim=True, unbiased=False)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         if self.weight is not None:
             y = y * self.weight[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+        return modulate_plain(y.to(x.dtype), maps, slope)
 
 
 def make_plain_norm(norm: str, features: int) -> Optional[nn.Module]:
@@ -211,7 +267,8 @@ class Spade(nn.Module):
     i + 1).  With `params_free`, map 0's convs are generated per sample and
     passed as `weights` = (gamma (B, C, Cm, k, k), beta (B, C, Cm, k, k)),
     without bias, as the reference does.  Each map's gamma and beta convs run
-    as one conv over concatenated output channels."""
+    as one conv over concatenated output channels, and the norm applies the
+    maps (and the leaky ReLU of `slope`, where given) after normalising."""
 
     def __init__(self, norm_nc: int, hidden_ncs: Sequence[int],
                  norm: str = "batch", ks: int = 1, params_free: bool = False):
@@ -229,11 +286,10 @@ class Spade(nn.Module):
             setattr(self, f"mlp_gamma{s}", nn.Conv2d(nc, norm_nc, ks, padding=ks // 2))
             setattr(self, f"mlp_beta{s}", nn.Conv2d(nc, norm_nc, ks, padding=ks // 2))
 
-    def forward(self, x, maps, weights=None):
+    def forward(self, x, maps, weights=None, slope=None):
         if not isinstance(maps, (list, tuple)):
             maps = [maps]
-        out = self.norm(x)
-        nc = self.norm_nc
+        gbs = []
         for i, m in enumerate(maps):
             if m is None:
                 continue
@@ -245,8 +301,8 @@ class Spade(nn.Module):
                 g, b = getattr(self, f"mlp_gamma{s}"), getattr(self, f"mlp_beta{s}")
                 gb = F.conv2d(m, torch.cat([g.weight, b.weight]),
                               torch.cat([g.bias, b.bias]), padding=self.ks // 2)
-            out = out * (1 + gb[:, :nc]) + gb[:, nc:]
-        return out
+            gbs.append(gb)
+        return self.norm(x, gbs, slope)
 
 
 class SpadeConv2d(nn.Module):
@@ -261,9 +317,9 @@ class SpadeConv2d(nn.Module):
 
     def forward(self, x):
         x = self.conv(x)
-        if self.bn is not None:
-            x = self.bn(x)
-        return leaky_relu(x)
+        if self.bn is None:
+            return leaky_relu(x)
+        return self.bn(x, slope=LEAKY_SLOPE)
 
 
 class SpadeResnetBlock(nn.Module):
@@ -303,10 +359,10 @@ class SpadeResnetBlock(nn.Module):
             self.bn_s = make_norm(fin)
         self.use_spade = use_spade
 
-    def _norm(self, bn, h, label, w):
+    def _norm(self, bn, h, label, w, slope=None):
         if bn is None:
-            return h
-        return bn(h, label, weights=w) if self.use_spade else bn(h)
+            return h if slope is None else leaky_relu(h, slope)
+        return bn(h, label, weights=w, slope=slope) if self.use_spade else bn(h, slope=slope)
 
     def _conv(self, name, h, w, stride=1):
         if self.conv_params_free:
@@ -327,8 +383,8 @@ class SpadeResnetBlock(nn.Module):
             x_s = avg_pool(x, 3, 2, 1)
         else:
             x_s = x
-        dx = self._conv("conv_0", leaky_relu(self._norm(self.bn_0, x, label, nw[0])),
+        dx = self._conv("conv_0", self._norm(self.bn_0, x, label, nw[0], LEAKY_SLOPE),
                         cw[0], self.stride)
-        dx = self._conv("conv_1", leaky_relu(self._norm(self.bn_1, dx, label, nw[1])),
+        dx = self._conv("conv_1", self._norm(self.bn_1, dx, label, nw[1], LEAKY_SLOPE),
                         cw[1])
         return x_s + dx
